@@ -1,0 +1,19 @@
+"""Dequantization-Net (counterpart of ``singlehdr_tpu.models.dequantization``):
+a residual U-Net with a 256-wide bottleneck whose tanh-bounded residual is
+added to the input (callers clip the sum to [0, 1])."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from singlehdr_tpu_torch.models.unet import ResidualUNet
+
+
+class DequantizationNet(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.unet = ResidualUNet(3, bottleneck_features=256)
+
+    def forward(self, ldr: torch.Tensor) -> torch.Tensor:
+        return ldr + torch.tanh(self.unet(ldr))

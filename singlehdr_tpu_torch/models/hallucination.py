@@ -1,0 +1,100 @@
+"""Hallucination-Net: recovers clipped highlights as a residual, output BGR
+(counterpart of ``singlehdr_tpu.models.hallucination``).
+
+The input is VGG-preprocessed (x255, RGB->BGR, minus the stored means), encoded
+by a VGG16-layout stack (64/128/256/512/512 with 2-2-3-3-3 convs and 2x2 max
+pools), a 3x3x512 latent conv + BN, and decoded by bilinear-x2 up stages with
+1x1 skip fusions over concat(x, skip/255); the last fusion takes the
+preprocessed BGR input itself.  In eval enc1 and enc2 run as the K4 wrapper
+``encoder_stage2`` (the CUDA kernel on the GPU, its plain version on the CPU);
+enc3..enc5, the latent conv and the decoder stay ``F.conv2d``.  The
+reference's unused second conv of the up block is not reproduced.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from singlehdr_tpu_torch.models.layers import BatchNorm, Conv2d, UpsampleConv
+from singlehdr_tpu_torch.ops.color import VGG_MEAN_BGR, vgg_preprocess
+from singlehdr_tpu_torch.ops.cuda.enc_pool_cuda import encoder_stage2
+from singlehdr_tpu_torch.ops.resize import max_pool
+
+_ENC = ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3))
+
+
+class EncoderStage(nn.Module):
+    """n ReLU 3x3 convs then a 2x2/2 SAME max pool; returns (pooled, skip)."""
+
+    def __init__(self, cin: int, features: int, n_convs: int):
+        super().__init__()
+        self.n_convs = n_convs
+        for i in range(n_convs):
+            self.add_module(f"conv{i + 1}", Conv2d(cin if i == 0 else features, features, 3))
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        if not self.training and self.n_convs == 2:
+            return encoder_stage2(x, self.conv1.weight, self.conv1.bias,
+                                  self.conv2.weight, self.conv2.bias)
+        for i in range(self.n_convs):
+            x = torch.relu(getattr(self, f"conv{i + 1}")(x))
+        return max_pool(x, 2, 2), x
+
+
+class DecoderStage(nn.Module):
+    """bilinear x2 -> conv3x3 -> ReLU -> BN -> ReLU."""
+
+    def __init__(self, cin: int, features: int):
+        super().__init__()
+        self.conv = UpsampleConv(cin, features)
+        self.bn = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.bn(torch.relu(self.conv(x))))
+
+
+class SkipFusion(nn.Module):
+    """conv1x1(concat(x, skip / 255))."""
+
+    def __init__(self, cx: int, cskip: int, features: int):
+        super().__init__()
+        self.conv = Conv2d(cx + cskip, features, 1)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        return self.conv(torch.cat([x, skip / 255.0], dim=1))
+
+
+class HallucinationNet(nn.Module):
+    def __init__(self):
+        super().__init__()
+        # stored, not constant: BGR-adapted reference weights reverse it
+        self.register_buffer("preproc_mean", torch.tensor(VGG_MEAN_BGR, dtype=torch.float32))
+        cin = 3
+        for i, (f, n) in enumerate(_ENC):
+            self.add_module(f"enc{i + 1}", EncoderStage(cin, f, n))
+            cin = f
+        self.latent_conv = Conv2d(512, 512, 3)
+        self.latent_bn = BatchNorm(512)
+        for i in range(len(_ENC), 0, -1):
+            f = _ENC[i - 1][0]
+            self.add_module(f"dec{i}", DecoderStage(cin, f))
+            self.add_module(f"skip{i}", SkipFusion(f, f, f))
+            cin = f
+        self.head_conv = Conv2d(64, 3, 1)
+        self.head_bn = BatchNorm(3)
+        self.skip0 = SkipFusion(3, 3, 3)
+
+    def forward(self, rgb01: torch.Tensor) -> torch.Tensor:
+        bgr = vgg_preprocess(rgb01, self.preproc_mean)
+        x = bgr
+        skips = []
+        for i in range(len(_ENC)):
+            x, s = getattr(self, f"enc{i + 1}")(x)
+            skips.append(s)
+        x = torch.relu(self.latent_bn(self.latent_conv(x)))
+        for i in range(len(_ENC), 0, -1):
+            x = getattr(self, f"dec{i}")(x)
+            x = getattr(self, f"skip{i}")(x, skips[i - 1])
+        x = torch.relu(self.head_bn(self.head_conv(x)))
+        return torch.relu(self.skip0(x, bgr))  # BGR residual

@@ -1,0 +1,128 @@
+"""Layer primitives with Keras semantics (counterpart of
+``singlehdr_tpu.models.layers``).
+
+  * ``Conv2d``: TF 'SAME' padding (asymmetric where TF pads asymmetrically,
+    e.g. 2 low / 3 high for a 7x7 stride-2 conv on an even extent), OIHW
+    weights, glorot-uniform kernel and zero bias at init.
+  * ``BatchNorm``: Keras constants (eps 1e-3, momentum 0.99, i.e. torch
+    momentum 0.01).  It holds exactly weight, bias, running_mean and
+    running_var, so its state maps one to one onto Flax's scale, bias, mean
+    and var.
+  * ``Dense``: glorot-uniform weight [out, in], zero bias.
+  * ``UpsampleConv``: ``conv3x3(resize_bilinear_x2(x))``.
+
+Module attribute names follow the Flax module names, so state_dict keys are
+the JAX parameter paths with dots (see ``convert.py``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from singlehdr_tpu_torch.ops.resize import resize_bilinear_x2, same_pads
+
+BN_EPSILON = 1e-3
+BN_MOMENTUM = 0.01  # torch convention; Keras momentum 0.99
+LEAKY_SLOPE = 0.1
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, LEAKY_SLOPE)
+
+
+def conv2d_same(x, weight, bias=None, stride: int = 1):
+    """F.conv2d with TF 'SAME' padding."""
+    kh, kw = weight.shape[-2:]
+    if stride == 1 and kh % 2 and kw % 2:
+        return F.conv2d(x, weight, bias, padding=(kh // 2, kw // 2))
+    pt, pb = same_pads(x.shape[2], kh, stride)
+    pl, pr = same_pads(x.shape[3], kw, stride)
+    if pt or pb or pl or pr:
+        x = F.pad(x, (pl, pr, pt, pb))
+    return F.conv2d(x, weight, bias, stride=stride)
+
+
+class Conv2d(nn.Module):
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1, bias: bool = True):
+        super().__init__()
+        self.stride = stride
+        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
+        if bias:
+            self.bias = nn.Parameter(torch.empty(cout))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d_same(x, self.weight, self.bias, self.stride)
+
+
+class UpsampleConv(Conv2d):
+    """``conv3x3(resize_bilinear_x2(x))`` — the decoder's resize + conv pair."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(cin, cout, 3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(resize_bilinear_x2(x))
+
+
+class Dense(nn.Module):
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin))
+        self.bias = nn.Parameter(torch.empty(cout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
+
+
+class BatchNorm(nn.Module):
+    """Keras BatchNormalization over dim 1 of NCHW (or [b, c]) tensors."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(channels))
+        self.bias = nn.Parameter(torch.empty(channels))
+        self.register_buffer("running_mean", torch.empty(channels))
+        self.register_buffer("running_var", torch.empty(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(
+            x, self.running_mean, self.running_var, self.weight, self.bias,
+            self.training, BN_MOMENTUM, BN_EPSILON,
+        )
+
+    def folded(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """Eval BN as an affine map: y = x * scale + shift, per channel."""
+        scale = self.weight / torch.sqrt(self.running_var + BN_EPSILON)
+        return scale, self.bias - self.running_mean * scale
+
+
+def _glorot_(w: torch.Tensor, generator: torch.Generator) -> None:
+    receptive = w[0][0].numel() if w.dim() > 2 else 1
+    fan_in, fan_out = w.shape[1] * receptive, w.shape[0] * receptive
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        w.copy_(torch.rand(w.shape, generator=generator, dtype=w.dtype) * (2 * limit) - limit)
+
+
+def keras_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Keras-default init in module order: glorot-uniform conv/dense kernels,
+    zero biases, BN scale 1 / shift 0 / mean 0 / var 1.  ``generator`` is a
+    CPU generator; initialise before moving the module to its device."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (Conv2d, Dense)):
+                _glorot_(m.weight, generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, BatchNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+    return module

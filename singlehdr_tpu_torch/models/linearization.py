@@ -1,0 +1,97 @@
+"""Linearization-Net: predicts a monotone 1024-sample inverse CRF from an LDR
+(counterpart of ``singlehdr_tpu.models.linearization``).
+
+A 93-channel feature stack feeds a 7x7/2 stem + BN + ReLU, a 3x3/2 SAME max
+pool, five bottleneck residual blocks and a global average pool; Dense(11)
+predicts PCA weights over the inverse-EMoR basis (``g0 + Hinv @ w``) and the
+curve is projected to be monotone.  In eval the feature stack and the stem
+run as the K3 wrapper ``lin_feature_stem`` with the stem BN folded into the
+conv (the CUDA kernel on the GPU, its plain version on the CPU).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from singlehdr_tpu.calib import load_inverse_emor
+from singlehdr_tpu_torch.models.layers import BatchNorm, Conv2d, Dense
+from singlehdr_tpu_torch.ops.cuda.lin_stem_cuda import lin_feature_stem
+from singlehdr_tpu_torch.ops.curves import decode_invcrf, monotonic_rf
+from singlehdr_tpu_torch.ops.histogram import N_FEATURES, linearization_features
+from singlehdr_tpu_torch.ops.resize import max_pool
+
+N_PCA_WEIGHTS = 11
+
+
+class BottleneckResBlock(nn.Module):
+    """1-3-1 bottleneck residual block; bias-free convs, BN after each."""
+
+    def __init__(self, cin: int, filters: tuple[int, int, int], stride: int = 1,
+                 projection: bool = False):
+        super().__init__()
+        f1, f2, f3 = filters
+        self.projection = projection
+        if projection:
+            self.proj_conv = Conv2d(cin, f3, 1, stride, bias=False)
+            self.proj_bn = BatchNorm(f3)
+        self.conv1 = Conv2d(cin, f1, 1, stride, bias=False)
+        self.bn1 = BatchNorm(f1)
+        self.conv2 = Conv2d(f1, f2, 3, bias=False)
+        self.bn2 = BatchNorm(f2)
+        self.conv3 = Conv2d(f2, f3, 1, bias=False)
+        self.bn3 = BatchNorm(f3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shortcut = self.proj_bn(self.proj_conv(x)) if self.projection else x
+        h = torch.relu(self.bn1(self.conv1(x)))
+        h = torch.relu(self.bn2(self.conv2(h)))
+        h = self.bn3(self.conv3(h))
+        return torch.relu(shortcut + h)
+
+
+class CrfFeatureNet(nn.Module):
+    """Feature stack + stem + max pool + res1..res5 + global average -> [b, 512]."""
+
+    def __init__(self):
+        super().__init__()
+        self.stem = Conv2d(N_FEATURES, 64, 7, stride=2)
+        self.stem_bn = BatchNorm(64)
+        self.res1 = BottleneckResBlock(64, (64, 64, 256), projection=True)
+        self.res2 = BottleneckResBlock(256, (64, 64, 256))
+        self.res3 = BottleneckResBlock(256, (64, 64, 256))
+        self.res4 = BottleneckResBlock(256, (128, 128, 512), stride=2, projection=True)
+        self.res5 = BottleneckResBlock(512, (128, 128, 512))
+
+    def forward(self, ldr: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            h = self.stem(linearization_features(ldr))
+            h = torch.relu(self.stem_bn(h))
+        else:
+            scale, shift = self.stem_bn.folded()
+            k = self.stem.weight * scale[:, None, None, None]
+            b = self.stem.bias * scale + shift
+            h = lin_feature_stem(ldr, k, b)
+        h = max_pool(h, 3, 2)
+        for block in (self.res1, self.res2, self.res3, self.res4, self.res5):
+            h = block(h)
+        return h.mean(dim=(2, 3))
+
+
+class LinearizationNet(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.crf_feature_net = CrfFeatureNet()
+        self.pca_head = Dense(512, N_PCA_WEIGHTS)
+        inv_emor = load_inverse_emor()
+        # constants of the decoder, not weights: kept out of the state_dict
+        self.register_buffer(
+            "g0", torch.as_tensor(inv_emor.mean, dtype=torch.float32), persistent=False
+        )
+        self.register_buffer(
+            "hinv", torch.as_tensor(inv_emor.basis, dtype=torch.float32), persistent=False
+        )
+
+    def forward(self, ldr: torch.Tensor) -> torch.Tensor:
+        w = self.pca_head(self.crf_feature_net(ldr))
+        return monotonic_rf(decode_invcrf(w, self.g0, self.hinv))

@@ -1,0 +1,19 @@
+"""Refinement-Net (counterpart of ``singlehdr_tpu.models.refinement``): the
+U-Net with a 128-wide bottleneck over concat[A, B, C] (9 channels), its
+residual added to A with a ReLU output."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from singlehdr_tpu_torch.models.unet import ResidualUNet
+
+
+class RefinementNet(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.unet = ResidualUNet(9, bottleneck_features=128)
+
+    def forward(self, abc: torch.Tensor) -> torch.Tensor:
+        return torch.relu(abc[:, 0:3] + self.unet(abc))

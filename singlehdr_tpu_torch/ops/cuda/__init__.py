@@ -1,0 +1,43 @@
+"""Hand-written CUDA kernels of the port and their wrappers.
+
+Each wrapper has a plain PyTorch version in its own module.  Dispatch is by
+the device of the input alone: a CPU tensor takes the plain version; a CUDA
+tensor launches the kernel, or the wrapper raises.  Each wrapper counts its
+launches in an integer attribute ``launches``, incremented where it launches
+its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+from singlehdr_tpu_torch.ops.cuda.apply_rf_cuda import apply_rf
+from singlehdr_tpu_torch.ops.cuda.enc_pool_cuda import encoder_stage2
+from singlehdr_tpu_torch.ops.cuda.lin_stem_cuda import lin_feature_stem
+from singlehdr_tpu_torch.ops.cuda.unet_stage_cuda import unet_stage2
+
+# name -> wrapper, in pipeline order
+KERNELS = {
+    "apply_rf": apply_rf,
+    "unet_stage2": unet_stage2,
+    "lin_feature_stem": lin_feature_stem,
+    "encoder_stage2": encoder_stage2,
+}
+
+
+def reset_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+__all__ = [
+    "KERNELS",
+    "apply_rf",
+    "encoder_stage2",
+    "launch_counts",
+    "lin_feature_stem",
+    "reset_launches",
+    "unet_stage2",
+]

@@ -1,0 +1,56 @@
+"""K4: fused VGG encoder stage — ReLU conv3x3 x2 + 2x2 max pool.
+
+Replaces ``singlehdr_tpu/ops/pallas/enc_pool_pallas.py`` (``encoder_stage2``),
+which ran hal's enc1 (3->64) and enc2 (64->128) with the conv1 activation
+kept in VMEM.  It is the same CUDA template as K2 (``csrc/conv2_pool.cu``)
+with ReLU and a SAME max pool: one block per output tile and all F channels,
+conv1 in shared memory, the skip and the complete pool written once.  The
+tile is picked from F so both shared-memory buffers fit: 16 x 16 for enc1,
+8 x 8 for enc2.  FMA-bound in f32.
+
+Layout: NCHW activations, OIHW weights.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from singlehdr_tpu_torch.ops.cuda import _build
+from singlehdr_tpu_torch.ops.cuda._check import ptr, require, stream
+from singlehdr_tpu_torch.ops.cuda.unet_stage_cuda import check_stage, pack_weights
+
+
+def encoder_stage2_plain(x, w1, b1, w2, b2):
+    """Plain version: ``(max_pool_2x2_SAME(skip), skip)`` with
+    ``skip = relu(conv3x3(relu(conv3x3(x, w1) + b1), w2) + b2)``."""
+    y = F.relu(F.conv2d(x, w1, b1, padding=1))
+    y = F.relu(F.conv2d(y, w2, b2, padding=1))
+    return F.max_pool2d(y, 2, 2, ceil_mode=True), y
+
+
+def encoder_stage2(x, w1, b1, w2, b2):
+    """K4 wrapper: ``(pooled [B,F,ceil(H/2),ceil(W/2)], skip [B,F,H,W])``.
+
+    x [B, C, H, W]; w1 [F, C, 3, 3]; b1 [F]; w2 [F, F, 3, 3]; b2 [F]; f32.
+    Plain version on the CPU, the kernel on the GPU.
+    """
+    if x.device.type == "cpu":
+        return encoder_stage2_plain(x, w1, b1, w2, b2)
+    require(x.device.type == "cuda", f"encoder_stage2: no kernel for device {x.device}")
+    B, C, H, W, Fo, _ = check_stage("encoder_stage2", x, w1, b1, w2, b2, (3,))
+    skip = torch.empty((B, Fo, H, W), dtype=x.dtype, device=x.device)
+    pooled = torch.empty(
+        (B, Fo, (H + 1) // 2, (W + 1) // 2), dtype=x.dtype, device=x.device
+    )
+    w1t, w2t = pack_weights(w1), pack_weights(w2)
+    with torch.cuda.device(x.device):
+        _build.call(
+            "shdr_encoder_stage2_f32", ptr(x), ptr(w1t), ptr(b1), ptr(w2t), ptr(b2),
+            ptr(skip), ptr(pooled), B, C, Fo, H, W, stream(x.device),
+        )
+    encoder_stage2.launches += 1
+    return pooled, skip
+
+
+encoder_stage2.launches = 0

@@ -1,0 +1,90 @@
+"""K2: fused U-Net encoder stage — leaky-ReLU SAME conv x2 + 2x2 average pool.
+
+Replaces ``singlehdr_tpu/ops/pallas/unet_stage_pallas.py`` (``unet_stage2``),
+which ran the deq/ref encoder prefix (stem pair, down2, down3) with the conv1
+activation kept in VMEM.  ``csrc/conv2_pool.cu`` does the same in shared
+memory: one block per T x T output tile and all F channels; conv1 over the
+tile plus its halo, conv2 from shared memory, then the skip and the complete
+2x2 pool (the TPU kernel left the W half of the pool to XLA).  On this card
+the stage is FMA-bound in f32; a thread holds a 2x2 quad x 8 channels so each
+shared-memory read feeds 8 FMAs.  The TPU's lane-alignment gates (W % 128)
+do not apply: any H, W runs, including the 576^2 serving shape.
+
+Layout: NCHW activations, OIHW weights (the port's own), as the JAX function
+under ``nchw_in=True`` returns.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from singlehdr_tpu_torch.ops.cuda import _build
+from singlehdr_tpu_torch.ops.cuda._check import (
+    cuda_f32,
+    no_grad_needed,
+    ptr,
+    require,
+    stream,
+)
+
+LEAKY_SLOPE = 0.1
+KERNEL_SIZES = (3, 5, 7)
+_FG = 8  # output channels a thread computes (csrc/conv2_pool.cu)
+
+
+def unet_stage2_plain(x, w1, b1, w2, b2):
+    """Plain version: ``(avg_pool_2x2(act), act)`` with
+    ``act = lrelu(conv(lrelu(conv(x, w1) + b1), w2) + b2)``, SAME padding."""
+    pad = w1.shape[-1] // 2
+    y = F.leaky_relu(F.conv2d(x, w1, b1, padding=pad), LEAKY_SLOPE)
+    y = F.leaky_relu(F.conv2d(y, w2, b2, padding=pad), LEAKY_SLOPE)
+    return F.avg_pool2d(y, 2), y
+
+
+def check_stage(name, x, w1, b1, w2, b2, kernel_sizes):
+    """Shared K2/K4 argument checks; returns (B, C, H, W, F, K)."""
+    dev = x.device
+    cuda_f32(f"{name}: x", x, dev, 4)
+    for arg, t, nd in (("w1", w1, 4), ("b1", b1, 1), ("w2", w2, 4), ("b2", b2, 1)):
+        cuda_f32(f"{name}: {arg}", t, dev, nd)
+    B, C, H, W = x.shape
+    Fo, K = w1.shape[0], w1.shape[-1]
+    require(K in kernel_sizes, f"{name}: kernel size {K} not in {kernel_sizes}")
+    require(tuple(w1.shape) == (Fo, C, K, K), f"{name}: w1 {tuple(w1.shape)} != {(Fo, C, K, K)}")
+    require(tuple(w2.shape) == (Fo, Fo, K, K), f"{name}: w2 {tuple(w2.shape)} != {(Fo, Fo, K, K)}")
+    require(b1.shape == (Fo,) and b2.shape == (Fo,), f"{name}: biases must be [{Fo}]")
+    require(Fo % _FG == 0, f"{name}: output channels {Fo} not a multiple of {_FG}")
+    require(H > 0 and W > 0 and B > 0, f"{name}: empty input {tuple(x.shape)}")
+    no_grad_needed(name, x, w1, b1, w2, b2)
+    return B, C, H, W, Fo, K
+
+
+def pack_weights(w: torch.Tensor) -> torch.Tensor:
+    """OIHW -> [I][K][K][O]: a thread's 8 output channels are contiguous."""
+    return w.permute(1, 2, 3, 0).contiguous()
+
+
+def unet_stage2(x, w1, b1, w2, b2):
+    """K2 wrapper: ``(pooled [B,F,H/2,W/2], act [B,F,H,W])``.
+
+    x [B, C, H, W]; w1 [F, C, K, K]; b1 [F]; w2 [F, F, K, K]; b2 [F];
+    K in {3, 5, 7}; f32.  Plain version on the CPU, the kernel on the GPU.
+    """
+    if x.device.type == "cpu":
+        return unet_stage2_plain(x, w1, b1, w2, b2)
+    require(x.device.type == "cuda", f"unet_stage2: no kernel for device {x.device}")
+    B, C, H, W, Fo, K = check_stage("unet_stage2", x, w1, b1, w2, b2, KERNEL_SIZES)
+    act = torch.empty((B, Fo, H, W), dtype=x.dtype, device=x.device)
+    pooled = torch.empty((B, Fo, H // 2, W // 2), dtype=x.dtype, device=x.device)
+    w1t, w2t = pack_weights(w1), pack_weights(w2)
+    with torch.cuda.device(x.device):
+        _build.call(
+            "shdr_unet_stage2_f32", K, ptr(x), ptr(w1t), ptr(b1), ptr(w2t), ptr(b2),
+            ptr(act), ptr(pooled), B, C, Fo, H, W, stream(x.device),
+        )
+    unet_stage2.launches += 1
+    return pooled, act
+
+
+unet_stage2.launches = 0

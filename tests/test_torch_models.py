@@ -1,0 +1,144 @@
+"""CPU parity of the PyTorch port's nets and pipeline against the JAX package.
+
+One set of weights goes into both packages: the JAX variable tree (its
+structure from ``jax.eval_shape`` of the Flax init, its values seeded numpy,
+BatchNorm statistics included) is bridged into the port by
+``convert.from_jax_variables``.  The nets run in eval mode, so the port's
+kernel wrappers (K1-K4) take their plain versions on these CPU tensors.
+Shapes are the goldens' (tests/test_golden.py): 2x32x32 per net, 1x64x64 for
+the pipeline.  Tolerance: 2e-5 absolute (tests/test_golden.py:37).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from singlehdr_tpu import models as jm
+from singlehdr_tpu.ops.color import VGG_MEAN_BGR
+from singlehdr_tpu_torch import models as tm
+from singlehdr_tpu_torch.convert import (
+    flat_variables,
+    from_jax_variables,
+    load_jax_variables,
+    to_jax_variables,
+)
+from singlehdr_tpu_torch.ops import cuda as kernels
+
+ATOL = 2e-5
+
+CASES = {
+    "deq": (jm.DequantizationNet, tm.DequantizationNet, (2, 32, 32, 3)),
+    "lin": (jm.LinearizationNet, tm.LinearizationNet, (2, 32, 32, 3)),
+    "hal": (jm.HallucinationNet, tm.HallucinationNet, (2, 32, 32, 3)),
+    "ref": (jm.RefinementNet, tm.RefinementNet, (2, 32, 32, 9)),
+}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def seeded_variables(module, sample_shape, seed=0):
+    """The JAX variable tree of ``module`` filled with seeded numpy values:
+    glorot-range kernels, small biases, non-trivial BN statistics."""
+    shapes = jax.eval_shape(
+        module.init, jax.random.PRNGKey(0), jnp.zeros(sample_shape, jnp.float32)
+    )
+    rs = np.random.RandomState(seed)
+
+    def fill(path, leaf):
+        name = path[-1].key
+        shape = leaf.shape
+        if name == "kernel":
+            fan = np.prod(shape[:-1]) + np.prod(shape[:-2]) * shape[-1]
+            lim = np.sqrt(6.0 / fan)
+            return rs.uniform(-lim, lim, shape).astype(np.float32)
+        if name in ("scale", "var"):
+            return rs.uniform(0.5, 1.5, shape).astype(np.float32)
+        if name == "preproc_mean":
+            return (np.asarray(VGG_MEAN_BGR) + rs.uniform(-1, 1, shape)).astype(np.float32)
+        return rs.uniform(-0.1, 0.1, shape).astype(np.float32)  # bias, mean
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def _input(shape, seed=0):
+    return np.random.RandomState(seed).rand(*shape).astype(np.float32)
+
+
+def _nchw(a):
+    return torch.from_numpy(np.ascontiguousarray(np.transpose(a, (0, 3, 1, 2))))
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_net_matches_jax(name):
+    jcls, tcls, shape = CASES[name]
+    variables = seeded_variables(jcls(), shape, seed=len(name))
+    x = _input(shape)
+    want = np.asarray(jax.jit(jcls().apply)(variables, jnp.asarray(x)))
+    net = load_jax_variables(tcls(), variables).eval()
+    with torch.inference_mode():
+        got = net(_nchw(x)).numpy()
+    if got.ndim == 4:
+        got = got.transpose(0, 2, 3, 1)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_bridge_round_trips_every_key(name):
+    jcls, tcls, shape = CASES[name]
+    flat = flat_variables(seeded_variables(jcls(), shape))
+    sd = from_jax_variables(flat)
+    # every JAX key lands on exactly one tensor of the port's module ...
+    assert set(sd) == set(tcls().state_dict())
+    assert len(sd) == len(flat)
+    # ... and comes back unchanged
+    back = to_jax_variables(sd)
+    assert set(back) == set(flat)
+    for k, v in flat.items():
+        np.testing.assert_array_equal(back[k], v)
+
+
+def test_pipeline_matches_jax():
+    shape = (1, 64, 64, 3)
+    variables = seeded_variables(jm.ReverseCameraPipeline(), shape, seed=3)
+    x = _input(shape, seed=1)
+    jpipe = jm.ReverseCameraPipeline()
+    want_hdr, want_invcrf = jax.jit(
+        lambda v, a: (lambda o: (o.hdr, o.invcrf))(jpipe.apply(v, a))
+    )(variables, jnp.asarray(x))
+    pipe = load_jax_variables(tm.ReverseCameraPipeline(), variables).eval()
+    kernels.reset_launches()
+    with torch.inference_mode():
+        out = pipe(_nchw(x))
+    np.testing.assert_allclose(
+        out.invcrf.numpy(), np.asarray(want_invcrf), atol=ATOL
+    )
+    np.testing.assert_allclose(
+        out.hdr.permute(0, 2, 3, 1).numpy(), np.asarray(want_hdr), atol=ATOL
+    )
+    # CPU tensors never launch a kernel
+    assert kernels.launch_counts() == {n: 0 for n in kernels.KERNELS}
+
+
+def test_seeded_init_is_deterministic_and_keras_like():
+    a = tm.build_pipeline(seed=0)
+    b = tm.build_pipeline(seed=0)
+    c = tm.build_pipeline(seed=1)
+    sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
+    assert all(torch.equal(sa[k], sb[k]) for k in sa)
+    assert not torch.equal(sa["deq.unet.stem1.weight"], sc["deq.unet.stem1.weight"])
+    assert torch.all(sa["lin.crf_feature_net.stem_bn.running_var"] == 1)
+    assert torch.all(sa["hal.enc1.conv1.bias"] == 0)
+    assert not a.training
+    n_params = {n: sum(p.numel() for p in getattr(a, n).parameters()) for n in
+                ("deq", "lin", "hal", "ref")}
+    # the published widths: ~2.0M / ~1.2M / ~24.6M / ~1.3M parameters
+    assert n_params == {"deq": 1999779, "lin": 1172747, "hal": 24569118, "ref": 1266947}
