@@ -1,7 +1,8 @@
-"""GPU smoke run of the PyTorch port: builds the four CUDA kernels, holds each
-against its plain PyTorch version at the serving shapes, serves a few requests
-through the port's HTTP server at the full published widths, and checks the
-served output against the CPU plain path.
+"""GPU smoke run of the PyTorch port: builds the five CUDA kernels, holds each
+against its plain PyTorch version at the serving and training shapes, serves
+a few requests through the port's HTTP server and trains the joint
+configuration through the ``joint_train`` CLI, both at the full published
+widths, and checks each path against the CPU plain path.
 
   python3 chip_smoke.py          (from the root of a checkout, one CUDA card)
 
@@ -16,14 +17,29 @@ Phases (each prints its own lines; any failure exits non-zero):
   6 launches every kernel counted during phase 4, per batch K1 x1, K2 x6,
              K3 x1, K4 x2
   7 timing   p50 latency and img/s at batch 1 and 8, per-net times at batch 8
+  8 K1-bwd   vs plain at [16, 3*256^2] and [4, 3*576^2]: gx bit-equal, grf
+             max|err| / max|plain| <= 1e-5 against the plain version in
+             float64; a curve-gradient-only case
+  9 training cli.joint_train.run at batch 16, 256^2 on synthetic .hdr files:
+             6 steps, then a resume to 8; K1-bwd once per step, K2..K4 never;
+             one cli.train --lin step
+  10 parity  one joint step, card vs CPU, at 2 x 64^2, every gradient tensor
+             within 2e-3 of its own max + 1e-3 of its net's max, and planted
+             faults (a zeroed or sign-flipped gradient) flagged by that bound;
+             one finetune step at 4 x 256^2 on the card (K1-bwd's gx branch)
+  11 timing  joint step at batch 16, 256^2: forward + loss, backward, Adam;
+             K1-bwd's share of the step
 The second-to-last line is the kernels' JSON record, the last the result.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -39,12 +55,33 @@ KERNEL_BATCH = 4
 KERNEL_REL_TOL = 1e-4   # f32 sum order differs between the kernels and cuDNN
 PATH_REL_TOL = 1e-4     # the whole served path vs the CPU plain path (f32 sum order)
 SEED = 0
+TRAIN_BATCH = 16        # the reference's joint configuration: batch 16 at 256^2
+TRAIN_HW = 256
+BWD_SHAPES = ((TRAIN_BATCH, 3 * TRAIN_HW * TRAIN_HW), (KERNEL_BATCH, 3 * 576 * 576))
+BWD_REL_TOL = 1e-5      # grf vs the float64 plain version: f32 atomic sums
+STEP_LOSS_REL_TOL = 1e-4
+# card vs CPU gradients, per tensor: max|g_card - g_cpu| <= STEP_GRAD_OWN_TOL
+# of the tensor's own max|g_cpu| + STEP_GRAD_NET_TOL of its net's largest
+# max|g_cpu|.  cuDNN's f32 backward algorithms (FFT among them) and the f32
+# batch-norm reductions move the card's hal and lin gradients by up to ~9e-4
+# of the net's scale (the CPU accumulates batch norm in double).  The net term
+# covers a bias in front of a batch-statistic normalisation, whose true
+# gradient is 0, so that its own maximum is no scale.
+STEP_GRAD_OWN_TOL = 2e-3
+STEP_GRAD_NET_TOL = 1e-3
+STEP_STATS_REL_TOL = 1e-4
+# tensors whose gradient, zeroed or sign-flipped on the card's side, the bound
+# must flag: small ones (BN scale and shift) and lin's dense head
+PLANTED_FAULTS = ("lin.crf_feature_net.stem_bn.weight", "lin.crf_feature_net.stem_bn.bias",
+                  "lin.pca_head.weight", "hal.dec1.bn.bias")
 
 # per batch of the pipeline: launches of each kernel
 PER_BATCH = {"apply_rf": 1, "unet_stage2": 6, "lin_feature_stem": 1, "encoder_stage2": 2}
 SOURCES = {
     "apply_rf": ("singlehdr_tpu_torch/csrc/apply_rf.cu",
                  "singlehdr_tpu/ops/pallas/apply_rf_pallas.py:159"),
+    "apply_rf_bwd": ("singlehdr_tpu_torch/csrc/apply_rf.cu",
+                     "singlehdr_tpu/ops/pallas/apply_rf_pallas.py:188"),
     "unet_stage2": ("singlehdr_tpu_torch/csrc/conv2_pool.cu",
                     "singlehdr_tpu/ops/pallas/unet_stage_pallas.py:263"),
     "lin_feature_stem": ("singlehdr_tpu_torch/csrc/lin_stem.cu",
@@ -318,6 +355,308 @@ def timings(predictor, pipe, card: str) -> None:
         MAX_BATCH, ", ".join(f"{k} {v:.2f}" for k, v in per_net.items()), card), flush=True)
 
 
+def k1_bwd_inputs(dev, b: int, n: int, seed: int):
+    """x with values below 0 and above 1, exact 0.0 and 1.0 (the saturated
+    pixels of an LDR), and values on bin edges; a monotone curve; seeded g."""
+    from singlehdr_tpu_torch.ops.curves import monotonic_rf
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand(b, n, generator=g, device=dev) * 1.4 - 0.2
+    x[:, : n // 5] = 1.0
+    x[:, n // 5: n // 4] = 0.0
+    edges = torch.randint(0, 1024, (b, n // 20), generator=g, device=dev).float() / 1023.0
+    x[:, n // 4: n // 4 + n // 20] = edges
+    rf = monotonic_rf(torch.rand(b, 1024, generator=g, device=dev)).contiguous()
+    return x.contiguous(), rf, torch.randn(b, n, generator=g, device=dev)
+
+
+def check_k1_bwd(dev) -> dict:
+    """Phase 8: K1-bwd vs apply_rf_bwd_plain at the training and serving shapes."""
+    from singlehdr_tpu_torch.ops.cuda.apply_rf_cuda import apply_rf_bwd, apply_rf_bwd_plain
+
+    report = {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+              "rf_only_ms": None, "rf_only_plain_ms": None}
+    for i, (b, n) in enumerate(BWD_SHAPES):
+        x, rf, g = k1_bwd_inputs(dev, b, n, SEED + i)
+        gx, grf = apply_rf_bwd(x, rf, g, True, True)
+        pgx, pgrf = apply_rf_bwd_plain(x, rf, g, True, True)
+        only_gx, only_grf = apply_rf_bwd(x, rf, g, False, True)
+        # the curve gradient sums ~n/5 terms into the saturated bin; both f32
+        # versions round that sum in their own atomic order, so grf is held to
+        # the plain version evaluated in float64
+        _, ref = apply_rf_bwd_plain(x.double(), rf.double(), g.double(), False, True)
+        torch.cuda.synchronize()
+        if not torch.equal(gx, pgx):
+            raise AssertionError(f"apply_rf_bwd [{b}, {n}]: gx not bit-equal "
+                                 f"(max err {(gx - pgx).abs().max().item():.3e})")
+        if only_gx is not None:
+            raise AssertionError("apply_rf_bwd: gx produced when only rf needs a gradient")
+        scale = ref.abs().max().item()
+        if not (scale > 0 and torch.isfinite(grf).all()):
+            raise AssertionError(f"apply_rf_bwd [{b}, {n}]: bad curve gradient")
+        abs_err = max((grf - ref).abs().max().item(), (only_grf - ref).abs().max().item())
+        rel_err = abs_err / scale
+        plain_rel = (pgrf - ref).abs().max().item() / scale
+        if not rel_err <= BWD_REL_TOL:
+            raise AssertionError(f"apply_rf_bwd [{b}, {n}]: grf rel err {rel_err:.3e} > {BWD_REL_TOL}")
+        ms = cuda_ms(lambda: apply_rf_bwd(x, rf, g, True, True))
+        plain_ms = cuda_ms(lambda: apply_rf_bwd_plain(x, rf, g, True, True))
+        rf_ms = cuda_ms(lambda: apply_rf_bwd(x, rf, g, False, True))
+        rf_plain_ms = cuda_ms(lambda: apply_rf_bwd_plain(x, rf, g, False, True))
+        report["max_abs_err"] = max(report["max_abs_err"], abs_err)
+        report["max_rel_err"] = max(report["max_rel_err"], rel_err)
+        report["ms"] += ms
+        report["plain_ms"] += plain_ms
+        if i == 0:  # the joint step's case: x = ldr needs no gradient
+            report["rf_only_ms"], report["rf_only_plain_ms"] = rf_ms, rf_plain_ms
+        print(f"  apply_rf_bwd [{b}, {n}]: gx bit-equal; grf vs float64 plain: max_abs_err {abs_err:.3e} "
+              f"rel {rel_err:.3e} (f32 plain: rel {plain_rel:.3e}; max|grf| {scale:.1f}); kernel {ms:.3f} ms plain {plain_ms:.3f} ms; "
+              f"grf only: kernel {rf_ms:.3f} ms plain {rf_plain_ms:.3f} ms", flush=True)
+    return report
+
+
+def write_hdr_files(root: str, n: int = 4) -> None:
+    """Seeded smooth radiance maps, 512 x 768 (short side 512), as .hdr files."""
+    import cv2
+
+    rs = np.random.RandomState(SEED)
+    for i in range(n):
+        coarse = (rs.rand(32, 48, 3).astype(np.float32) * 4) ** 2
+        rgb = np.kron(coarse, np.ones((16, 16, 1), np.float32))
+        path = os.path.join(root, f"synth{i:02d}.hdr")
+        if not cv2.imwrite(path, np.ascontiguousarray(rgb[:, :, ::-1])):  # cv2 writes BGR
+            raise RuntimeError(f"failed to write {path}")
+
+
+def logged_losses(root: str, tag: str) -> list:
+    losses = []
+    for dirpath, _, files in os.walk(os.path.join(root, "tensorboard")):
+        if "events.jsonl" in files:
+            with open(os.path.join(dirpath, "events.jsonl")) as f:
+                losses += [json.loads(line)[tag] for line in f if tag in line]
+    return losses
+
+
+def check_train_launches(counts: dict, steps: int, label: str) -> None:
+    print(f"  {label}: launches {counts} over {steps} steps", flush=True)
+    if counts["apply_rf_bwd"] != steps:
+        raise AssertionError(f"{label}: K1-bwd launched {counts['apply_rf_bwd']} times, "
+                             f"expected once per step ({steps})")
+    if counts["apply_rf"] < 2 * steps:  # lin's B_pred and the capture's CRF, per step
+        raise AssertionError(f"{label}: K1 launched {counts['apply_rf']} times for {steps} steps")
+    for name in ("unet_stage2", "lin_feature_stem", "encoder_stage2"):
+        if counts[name]:
+            raise AssertionError(f"{label}: {name} launched in train mode")
+
+
+def joint_training(card: str) -> dict:
+    """Phase 9: the joint configuration through cli.joint_train.run, then a
+    resume, then one cli.train --lin step.  Returns the summed launch counts."""
+    from singlehdr_tpu_torch.cli import joint_train, train
+    from singlehdr_tpu_torch.ops import cuda as kernels
+    from singlehdr_tpu_torch.train.checkpoint import CheckpointManager
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    cwd = os.getcwd()
+    total = dict.fromkeys(kernels.KERNELS, 0)
+    try:
+        data = os.path.join(root, "hdr")
+        os.makedirs(data)
+        write_hdr_files(data)
+        os.chdir(root)  # the CLIs write their run directories under the cwd
+        ck = {n: os.path.join(root, "checkpoints", n) for n in ("deq", "lin", "hal", "jnt")}
+        base = ["--dir", data, "--batch_size", str(TRAIN_BATCH), "--patch_size", str(TRAIN_HW),
+                "--ckpt_every", "3", "--log_every", "1", "--workers", "8",
+                "--deq_ckpt", ck["deq"], "--lin_ckpt", ck["lin"], "--hal_ckpt", ck["hal"],
+                "--jnt_ckpt", ck["jnt"]]
+        for iterations, start in ((6, 0), (8, 6)):
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            state = joint_train.run(joint_train.build_parser().parse_args(
+                base + ["--iterations", str(iterations)]))
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            if state.step != iterations:
+                raise AssertionError(f"joint run ended at step {state.step}, not {iterations}")
+            check_train_launches(counts, iterations - start, f"joint steps {start}->{iterations}")
+            total = {k: total[k] + counts[k] for k in total}
+            print(f"  joint_train.run to step {iterations} (from {start}): "
+                  f"{time.perf_counter() - t0:.1f} s wall incl. set-up  [{card}]", flush=True)
+        saved = CheckpointManager(ck["jnt"]).steps()
+        if not {3, 6, 8} <= set(saved):
+            raise AssertionError(f"joint checkpoints {saved}, expected 3, 6 and 8")
+        losses = logged_losses(root, "jnt/loss")
+        if len(losses) != 8 or not np.isfinite(losses).all():
+            raise AssertionError(f"joint losses logged: {losses}")
+        print(f"  checkpoints at steps {saved}; losses {[round(v, 4) for v in losses]}", flush=True)
+
+        kernels.reset_launches()
+        train.run(train.build_parser().parse_args(
+            ["--hdrdir", data, "--lin", "true", "--lin_ckpt", ck["lin"], "--iterations", "1",
+             "--batch_size", str(TRAIN_BATCH), "--patch_size", str(TRAIN_HW), "--workers", "8"]))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        check_train_launches(counts, 1, "train --lin step")
+        total = {k: total[k] + counts[k] for k in total}
+        lin_losses = logged_losses(root, "lin/loss")
+        if CheckpointManager(ck["lin"]).steps() != [1] or not np.isfinite(lin_losses).all():
+            raise AssertionError(f"lin run: checkpoints {CheckpointManager(ck['lin']).steps()}, "
+                                 f"losses {lin_losses}")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
+def joint_batch(dev, b: int, hw: int, seed: int) -> list:
+    """Seeded inputs of the joint step: ldr, jpeg, clipped_hdr_t, hdr_t, mask, invcrf."""
+    from singlehdr_tpu_torch.ops.curves import monotonic_rf
+
+    g = torch.Generator().manual_seed(seed)
+    ldr = torch.rand(b, 3, hw, hw, generator=g)
+    jpeg = (ldr + 0.02 * torch.randn(b, 3, hw, hw, generator=g)).clamp(0, 1)
+    clipped = torch.rand(b, 3, hw, hw, generator=g)
+    hdr_t = clipped * (1 + torch.rand(b, 1, 1, 1, generator=g))
+    invcrf = monotonic_rf(torch.rand(b, 1024, generator=g))
+    return [t.to(dev) for t in (ldr, jpeg, clipped, hdr_t, torch.ones(b, 1, 1, 1), invcrf)]
+
+
+def step_parity(dev) -> None:
+    """Phase 10: one joint step on the card vs the same step on the CPU, then
+    one finetune step on the card."""
+    from singlehdr_tpu_torch.models.vgg16 import Vgg16Features
+    from singlehdr_tpu_torch.ops import cuda as kernels
+    from singlehdr_tpu_torch.train import steps
+    from singlehdr_tpu_torch.train.state import init_multi_state
+
+    grads, stats, losses = {}, {}, {}
+    for label, where in (("cpu", "cpu"), ("card", dev)):
+        state = init_multi_state(("deq", "lin", "hal"), 1e-5, seed=SEED, device=where)
+        losses[label], _ = steps.make_joint_train_step(Vgg16Features().to(where))(
+            state, *joint_batch(where, 2, 64, SEED))
+        grads[label] = {n: p.grad.double().cpu() for n, p in state.nets.named_parameters()}
+        stats[label] = {n: b.double().cpu() for n, b in state.nets.named_buffers()
+                        if n.endswith(("running_mean", "running_var"))}
+    torch.cuda.synchronize()
+    card, cpu = grads["card"], grads["cpu"]
+    loss_rel = abs(losses["card"].item() - losses["cpu"].item()) / abs(losses["cpu"].item())
+    stats_rel = max(((stats["card"][n] - b).abs().max() / b.abs().max()).item()
+                    for n, b in stats["cpu"].items())
+
+    net_max = {}
+    for name, g in cpu.items():
+        net = name.split(".")[0]
+        net_max[net] = max(net_max.get(net, 0.0), g.abs().max().item())
+    own = {name: g.abs().max().item() for name, g in cpu.items()}
+    bound = {name: STEP_GRAD_OWN_TOL * own[name] + STEP_GRAD_NET_TOL * net_max[name.split(".")[0]]
+             for name in cpu}
+
+    def excess(name: str, got: torch.Tensor) -> float:
+        """max|got - g_cpu| of one tensor over its bound; > 1 fails."""
+        return (got - cpu[name]).abs().max().item() / bound[name]
+
+    ratio = {name: excess(name, g) for name, g in card.items()}
+    failures = [f"{name}: non-finite" for name, g in card.items() if not torch.isfinite(g).all()]
+    failures += [f"{name}: max|dg| {r * bound[name]:.3e} > bound {bound[name]:.3e}"
+                 for name, r in ratio.items() if not r <= 1]
+    print(f"  joint step 2x64^2, card vs CPU: loss rel {loss_rel:.3e} (bound {STEP_LOSS_REL_TOL}); "
+          f"BN stats rel {stats_rel:.3e} (bound {STEP_STATS_REL_TOL}); gradients vs bound "
+          f"{STEP_GRAD_OWN_TOL} own max + {STEP_GRAD_NET_TOL} net max, worst:", flush=True)
+    for name in sorted(ratio, key=ratio.get, reverse=True)[:4]:
+        err = ratio[name] * bound[name]
+        net = net_max[name.split(".")[0]]
+        print(f"    {name}: {ratio[name]:.3f} of bound; max|dg| {err:.3e} = {err / own[name]:.3e} own "
+              f"max = {err / net:.3e} net max; own max {own[name] / net:.3e} net max", flush=True)
+    for net in sorted(net_max):
+        worst = max((r * bound[n] for n, r in ratio.items() if n.startswith(net + ".")))
+        print(f"    {net}: worst max|dg| / net max {worst / net_max[net]:.3e}", flush=True)
+    if not loss_rel <= STEP_LOSS_REL_TOL:
+        raise AssertionError(f"joint step loss differs from the CPU step: rel {loss_rel:.3e}")
+    if failures:
+        raise AssertionError("joint step gradients differ from the CPU step:\n  " + "\n  ".join(failures))
+    if not stats_rel <= STEP_STATS_REL_TOL:
+        raise AssertionError(f"joint step BN statistics differ from the CPU step: rel {stats_rel:.3e}")
+
+    # planted faults on the card's gradients: the bound must separate them
+    planted = {(name, fault): excess(name, bad) for name, g in card.items()
+               for fault, bad in (("zeroed", torch.zeros_like(g)), ("sign-flipped", -g))}
+    missed = sorted({name for (name, _), r in planted.items() if not r > 1},
+                    key=lambda n: own[n] / net_max[n.split(".")[0]])
+    for name in PLANTED_FAULTS:
+        print(f"    planted: {name} (own max {own[name] / net_max[name.split('.')[0]]:.3e} net max) "
+              f"zeroed {planted[name, 'zeroed']:.1f}x bound, sign-flipped "
+              f"{planted[name, 'sign-flipped']:.1f}x bound", flush=True)
+        if not (planted[name, "zeroed"] > 1 and planted[name, "sign-flipped"] > 1):
+            raise AssertionError(f"the gradient bound does not flag a planted fault in {name}")
+    print(f"    both faults are flagged in {len(card) - len(missed)} of "
+          f"{len(card)} tensors; not in {len(missed)}, whose own max is at most "
+          f"{max((own[n] / net_max[n.split('.')[0]] for n in missed), default=0):.2e} of "
+          f"their net's: {', '.join(missed)}", flush=True)
+
+    state = init_multi_state(("deq", "lin", "hal", "ref"), 1e-5, seed=SEED, device=dev)
+    g = torch.Generator().manual_seed(SEED + 3)
+    ldr = torch.rand(4, 3, TRAIN_HW, TRAIN_HW, generator=g).to(dev)
+    hdr = (2 * torch.rand(4, 3, TRAIN_HW, TRAIN_HW, generator=g)).to(dev)
+    kernels.reset_launches()
+    loss, _ = steps.make_finetune_train_step()(state, ldr, hdr)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    deq_grads = [p.grad for p in state.nets["deq"].parameters()]
+    if counts["apply_rf_bwd"] != 1 or not torch.isfinite(loss):
+        raise AssertionError(f"finetune step: loss {loss.item()}, launches {counts}")
+    if not all(torch.isfinite(gr).all() for gr in deq_grads) or not any(gr.abs().max() > 0 for gr in deq_grads):
+        raise AssertionError("finetune step: the gradient reaching deq is not finite and non-zero")
+    print(f"  finetune step 4x{TRAIN_HW}^2 on the card: loss {loss.item():.2f}, deq max|g| "
+          f"{max(gr.abs().max().item() for gr in deq_grads):.3e}, launches {counts}", flush=True)
+
+
+def train_timings(dev, card: str, bwd_report: dict) -> None:
+    """Phase 11: the joint step at batch 16, 256^2, split with CUDA events."""
+    from singlehdr_tpu_torch.models.vgg16 import Vgg16Features
+    from singlehdr_tpu_torch.ops.cuda.apply_rf_cuda import apply_rf_bwd
+    from singlehdr_tpu_torch.train import steps
+    from singlehdr_tpu_torch.train.state import init_multi_state
+
+    state = init_multi_state(("deq", "lin", "hal"), 1e-5, seed=SEED, device=dev)
+    vgg = Vgg16Features().to(dev)
+    batch = joint_batch(dev, TRAIN_BATCH, TRAIN_HW, SEED + 4)
+    state.nets.train()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rows = []
+    for i in range(2 + 7):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        loss, _ = steps.joint_loss(state.nets, vgg, *batch)
+        ev[1].record()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        ev[2].record()
+        state.optimizer.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        if i >= 2:
+            rows.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]),
+                         ev[2].elapsed_time(ev[3]), ev[0].elapsed_time(ev[3]), wall))
+        if not torch.isfinite(loss):
+            raise AssertionError(f"timing step {i}: loss {loss.item()}")
+    fwd, bwd, opt, total, wall = (float(np.median(c)) for c in zip(*rows))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    # K1-bwd as the joint step calls it (curve gradient only, x = this batch's
+    # ldr), and on phase 8's input, 20 % of whose pixels sit in the hot bin 1023
+    ldr, invcrf = batch[0].reshape(TRAIN_BATCH, -1), batch[5].contiguous()
+    g = torch.randn_like(ldr)
+    step_bwd_ms = cuda_ms(lambda: apply_rf_bwd(ldr, invcrf, g, False, True))
+    hot_bwd_ms = bwd_report["rf_only_ms"]
+    print(f"  joint step b{TRAIN_BATCH} @ {TRAIN_HW}^2 f32, median of {len(rows)}: {total:.2f} ms device "
+          f"({wall:.2f} ms wall), {TRAIN_BATCH / total * 1e3:.2f} img/s; forward+loss {fwd:.2f} ms, "
+          f"backward {bwd:.2f} ms, optimizer.step {opt:.2f} ms; peak memory {peak:.2f} GiB; "
+          f"K1-bwd on this step's ldr {step_bwd_ms:.4f} ms = {100 * step_bwd_ms / total:.4f} % of the "
+          f"step, on phase 8's saturated input {hot_bwd_ms:.4f} ms = {100 * hot_bwd_ms / total:.4f} %  "
+          f"[{card}]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -366,10 +705,28 @@ def main() -> int:
     phase("7 timings")
     timings(predictor, pipe, card)
     torch.cuda.synchronize()
+    del predictor, pipe
+    torch.cuda.empty_cache()
 
+    phase("8 K1-bwd vs plain")
+    report["apply_rf_bwd"] = check_k1_bwd(dev)
+
+    phase("9 joint training through the entry point")
+    train_launches = joint_training(card)
+
+    phase("10 one-step parity, card vs CPU")
+    step_parity(dev)
+
+    phase("11 training timings")
+    train_timings(dev, card, report["apply_rf_bwd"])
+    torch.cuda.synchronize()
+
+    # launches: the serving path's (phase 4) plus the training path's (phase 9)
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
-         "replaces": SOURCES[name][1], "launches": launches[name],
+         "replaces": SOURCES[name][1],
+         "launches": launches.get(name, 0) + train_launches[name],
+         "launches_by_path": {"serving": launches.get(name, 0), "training": train_launches[name]},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"]}
         for name, r in report.items()
     ]

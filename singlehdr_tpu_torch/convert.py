@@ -12,7 +12,11 @@ Flax module names, so a key maps by its leaf:
   batch_stats/<path>/mean | var     <->  <path>.running_mean | running_var
   batch_stats/hal/preproc_mean      <->  hal.preproc_mean
 
-Every key maps to exactly one tensor, in both directions.
+Every key maps to exactly one tensor, in both directions.  A train state's
+``ModuleDict`` of nets carries the multi-net paths (``params/deq/...``).
+Optax's Adam state (count, mu, nu) maps onto torch Adam's (step, exp_avg,
+exp_avg_sq) per parameter by the same rule (``adam_state_from_jax`` /
+``adam_state_to_jax``).
 """
 
 from __future__ import annotations
@@ -95,6 +99,49 @@ def to_jax_variables(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.nda
 
 
 def load_jax_variables(module: torch.nn.Module, variables: Mapping[str, Any]) -> torch.nn.Module:
-    """Load JAX variables into ``module`` strictly (every key, both ways)."""
+    """Load JAX variables into ``module`` strictly (every key, both ways).
+    A multi-net tree (``params/deq/...``) loads into the train state's
+    ``ModuleDict``; a one-net tree into that net."""
     module.load_state_dict(from_jax_variables(variables), strict=True)
     return module
+
+
+def _param_tensors(module: torch.nn.Module, tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A params-shaped JAX tree (nested, or flat with ``params/`` keys) ->
+    {parameter name: tensor}, covering exactly ``module``'s parameters."""
+    flat = from_jax_variables(tree if any("/" in k for k in tree) else {"params": tree})
+    names = {n for n, _ in module.named_parameters()}
+    if set(flat) != names:
+        raise KeyError(f"Adam moments do not match the parameters: {sorted(set(flat) ^ names)[:4]}")
+    return flat
+
+
+def adam_state_from_jax(module: torch.nn.Module, optimizer: torch.optim.Adam, count: int,
+                        mu: Mapping[str, Any], nu: Mapping[str, Any]) -> None:
+    """Optax Adam state (``ScaleByAdamState`` count, mu, nu) -> torch Adam
+    state (``step``, ``exp_avg``, ``exp_avg_sq``) of ``module``'s parameters,
+    one to one.  ``optimizer`` must hold those parameters."""
+    exp_avg, exp_avg_sq = _param_tensors(module, mu), _param_tensors(module, nu)
+    for name, p in module.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": exp_avg[name].to(p.device),
+            "exp_avg_sq": exp_avg_sq[name].to(p.device),
+        }
+
+
+def adam_state_to_jax(module: torch.nn.Module, optimizer: torch.optim.Adam):
+    """torch Adam state of ``module``'s parameters -> (count, mu, nu), mu and
+    nu flat with ``params/...`` keys (zeros where Adam has not stepped)."""
+    names = dict(module.named_parameters())
+    state = [optimizer.state.get(p, {}) for p in names.values()]
+    counts = {int(s["step"]) for s in state if "step" in s}
+    if len(counts) > 1:
+        raise ValueError(f"parameters at different Adam steps: {sorted(counts)}")
+    moments = []
+    for key in ("exp_avg", "exp_avg_sq"):
+        moments.append(to_jax_variables({
+            n: s[key] if key in s else torch.zeros_like(p)
+            for (n, p), s in zip(names.items(), state)
+        }))
+    return (counts.pop() if counts else 0), moments[0], moments[1]

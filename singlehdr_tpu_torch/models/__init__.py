@@ -1,4 +1,4 @@
-"""``nn.Module`` counterparts of ``singlehdr_tpu.models`` (serving forward)."""
+"""``nn.Module`` counterparts of ``singlehdr_tpu.models``."""
 
 from singlehdr_tpu_torch.models.dequantization import DequantizationNet
 from singlehdr_tpu_torch.models.hallucination import HallucinationNet
@@ -10,6 +10,7 @@ from singlehdr_tpu_torch.models.pipeline import (
 )
 from singlehdr_tpu_torch.models.refinement import RefinementNet
 from singlehdr_tpu_torch.models.unet import ResidualUNet
+from singlehdr_tpu_torch.models.vgg16 import Vgg16Features
 
 __all__ = [
     "DequantizationNet",
@@ -19,5 +20,6 @@ __all__ = [
     "RefinementNet",
     "ResidualUNet",
     "ReverseCameraPipeline",
+    "Vgg16Features",
     "build_pipeline",
 ]

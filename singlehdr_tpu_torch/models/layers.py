@@ -5,7 +5,8 @@
     e.g. 2 low / 3 high for a 7x7 stride-2 conv on an even extent), OIHW
     weights, glorot-uniform kernel and zero bias at init.
   * ``BatchNorm``: Keras constants (eps 1e-3, momentum 0.99, i.e. torch
-    momentum 0.01).  It holds exactly weight, bias, running_mean and
+    momentum 0.01), running statistics updated with the biased batch
+    variance as Flax does.  It holds exactly weight, bias, running_mean and
     running_var, so its state maps one to one onto Flax's scale, bias, mean
     and var.
   * ``Dense``: glorot-uniform weight [out, in], zero bias.
@@ -91,10 +92,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.empty(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(
-            x, self.running_mean, self.running_var, self.weight, self.bias,
-            self.training, BN_MOMENTUM, BN_EPSILON,
-        )
+        if not self.training:
+            return F.batch_norm(
+                x, self.running_mean, self.running_var, self.weight, self.bias,
+                False, BN_MOMENTUM, BN_EPSILON,
+            )
+        # Flax/Keras keep the BIASED batch variance in the running average;
+        # torch's own update would store the unbiased one (n / (n - 1)).
+        with torch.no_grad():
+            dims = (0,) + tuple(range(2, x.dim()))
+            var, mean = torch.var_mean(x, dim=dims, unbiased=False)
+            self.running_mean.mul_(1.0 - BN_MOMENTUM).add_(mean, alpha=BN_MOMENTUM)
+            self.running_var.mul_(1.0 - BN_MOMENTUM).add_(var, alpha=BN_MOMENTUM)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, BN_EPSILON)
 
     def folded(self) -> tuple[torch.Tensor, torch.Tensor]:
         """Eval BN as an affine map: y = x * scale + shift, per channel."""

@@ -9,17 +9,18 @@ its kernel and nowhere else.
 
 from __future__ import annotations
 
-from singlehdr_tpu_torch.ops.cuda.apply_rf_cuda import apply_rf
+from singlehdr_tpu_torch.ops.cuda.apply_rf_cuda import apply_rf, apply_rf_bwd
 from singlehdr_tpu_torch.ops.cuda.enc_pool_cuda import encoder_stage2
 from singlehdr_tpu_torch.ops.cuda.lin_stem_cuda import lin_feature_stem
 from singlehdr_tpu_torch.ops.cuda.unet_stage_cuda import unet_stage2
 
-# name -> wrapper, in pipeline order
+# name -> wrapper, in pipeline order; the backward last
 KERNELS = {
     "apply_rf": apply_rf,
     "unet_stage2": unet_stage2,
     "lin_feature_stem": lin_feature_stem,
     "encoder_stage2": encoder_stage2,
+    "apply_rf_bwd": apply_rf_bwd,
 }
 
 
@@ -35,6 +36,7 @@ def launch_counts() -> dict:
 __all__ = [
     "KERNELS",
     "apply_rf",
+    "apply_rf_bwd",
     "encoder_stage2",
     "launch_counts",
     "lin_feature_stem",

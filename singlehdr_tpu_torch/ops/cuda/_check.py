@@ -3,8 +3,18 @@
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
+
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (wrappers run on the training loop's
+    feed threads and on autograd's device thread as well as the caller's)."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def require(cond: bool, msg: str) -> None:
@@ -21,7 +31,7 @@ def cuda_f32(name: str, t: torch.Tensor, device: torch.device, ndim: int) -> Non
 
 
 def no_grad_needed(name: str, *tensors: torch.Tensor) -> None:
-    """The forward kernels have no backward yet (training takes the plain path)."""
+    """K2-K4 are forward-only, as in JAX (the nets' train mode takes plain convs)."""
     require(
         not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)),
         f"{name}: the CUDA kernel is forward-only; run it under no_grad/inference_mode",

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from singlehdr_tpu_torch.ops.cuda import _build
-from singlehdr_tpu_torch.ops.cuda._check import ptr, require, stream
+from singlehdr_tpu_torch.ops.cuda._check import count_launch, ptr, require, stream
 from singlehdr_tpu_torch.ops.cuda.unet_stage_cuda import check_stage, pack_weights
 
 
@@ -49,7 +49,7 @@ def encoder_stage2(x, w1, b1, w2, b2):
             "shdr_encoder_stage2_f32", ptr(x), ptr(w1t), ptr(b1), ptr(w2t), ptr(b2),
             ptr(skip), ptr(pooled), B, C, Fo, H, W, stream(x.device),
         )
-    encoder_stage2.launches += 1
+    count_launch(encoder_stage2)
     return pooled, skip
 
 

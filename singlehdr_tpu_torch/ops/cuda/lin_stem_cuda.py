@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from singlehdr_tpu_torch.ops.cuda import _build
 from singlehdr_tpu_torch.ops.cuda._check import (
+    count_launch,
     cuda_f32,
     no_grad_needed,
     ptr,
@@ -70,7 +71,7 @@ def lin_feature_stem(x, kernel7, bias):
             "shdr_lin_stem_f32", ptr(x), ptr(wt), ptr(bias), ptr(out),
             B, H, W, ho, wo, pad_t, pad_l, stream(x.device),
         )
-    lin_feature_stem.launches += 1
+    count_launch(lin_feature_stem)
     return out
 
 

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from singlehdr_tpu_torch.ops.cuda import _build
 from singlehdr_tpu_torch.ops.cuda._check import (
+    count_launch,
     cuda_f32,
     no_grad_needed,
     ptr,
@@ -83,7 +84,7 @@ def unet_stage2(x, w1, b1, w2, b2):
             "shdr_unet_stage2_f32", K, ptr(x), ptr(w1t), ptr(b1), ptr(w2t), ptr(b2),
             ptr(act), ptr(pooled), B, C, Fo, H, W, stream(x.device),
         )
-    unet_stage2.launches += 1
+    count_launch(unet_stage2)
     return pooled, act
 
 

@@ -27,10 +27,13 @@ def monotonic_rf(rf: torch.Tensor) -> torch.Tensor:
     """Project curves onto increasing curves with rf[0]=0 and rf[-1]=1.
 
     Finite differences, lifted by ``relu(-min step)``, renormalised to sum to
-    1, cumulatively summed, with a 0 prepended.
+    1, cumulatively summed, with a 0 prepended.  The gradient follows JAX's
+    tie rules: ``amin`` splits it evenly between tied minima, and
+    ``torch.maximum`` gives 0.5 to each side at a lift of exactly 0, as
+    ``jnp.min`` and ``jnp.maximum`` do.
     """
     g = rf[:, 1:] - rf[:, :-1]
-    lift = torch.clamp(-g.min(dim=-1, keepdim=True).values, min=0.0)
+    lift = torch.maximum(-g.amin(dim=-1, keepdim=True), torch.zeros((), dtype=g.dtype, device=g.device))
     g = g + lift
     g = g / g.sum(dim=-1, keepdim=True)
     return torch.nn.functional.pad(torch.cumsum(g, dim=-1), (1, 0))

@@ -1,0 +1,62 @@
+"""Loss primitives with the reference's reduction semantics (counterpart of
+``singlehdr_tpu.ops.losses``), on NCHW tensors.
+
+Every helper returns the unreduced per-sample tensor [b, 1, 1, 1]; the
+objective the train steps differentiate is its SUM, as TF's
+``tape.gradient`` reduces a non-scalar target (``scalar_from_per_sample``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from singlehdr_tpu_torch.ops.tonemap import mu_tonemap
+
+_PER_SAMPLE = (1, 2, 3)
+
+
+def masked_l2(pred, target, mask=None) -> torch.Tensor:
+    """Per-sample mean squared error [b, 1, 1, 1], optionally masked."""
+    loss = torch.mean(torch.square(pred - target), dim=_PER_SAMPLE, keepdim=True)
+    return loss if mask is None else loss * mask
+
+
+def masked_l1(pred, target, mask=None) -> torch.Tensor:
+    """Per-sample mean absolute error [b, 1, 1, 1], optionally masked."""
+    loss = torch.mean(torch.abs(pred - target), dim=_PER_SAMPLE, keepdim=True)
+    return loss if mask is None else loss * mask
+
+
+def tv_loss(x: torch.Tensor) -> torch.Tensor:
+    """Anisotropic total variation of [b, c, h, w], a scalar: the sums of
+    |vertical| and |horizontal| differences, each over b*c*h*w (the
+    reference's symmetric-pad form, whose last difference is zero)."""
+    n = x.numel()
+    dh = torch.sum(torch.abs(x[:, :, 1:] - x[:, :, :-1])) / n
+    dw = torch.sum(torch.abs(x[:, :, :, 1:] - x[:, :, :, :-1])) / n
+    return dh + dw
+
+
+def perceptual_l1(feats_a, feats_b) -> torch.Tensor:
+    """Sum over feature pairs of the per-sample mean |a - b| -> [b, 1, 1, 1]."""
+    total = 0.0
+    for fa, fb in zip(feats_a, feats_b):
+        total = total + torch.mean(torch.abs(fa - fb), dim=_PER_SAMPLE, keepdim=True)
+    return total
+
+
+def hallucination_loss(y, target, vgg, mask, perceptual_weight: float = 0.001,
+                       tv_weight: float = 0.1) -> torch.Tensor:
+    """L1 + perceptual + TV in the mu-tonemapped domain -> [b, 1, 1, 1]; the
+    TV term is a scalar added to every sample's loss before masking."""
+    y_g = mu_tonemap(y)
+    t_g = mu_tonemap(target)
+    l1 = torch.mean(torch.abs(y_g - t_g), dim=_PER_SAMPLE, keepdim=True)
+    perc = perceptual_l1(vgg(y_g), vgg(t_g))
+    loss = l1 + perceptual_weight * perc + tv_weight * tv_loss(y_g)
+    return loss if mask is None else loss * mask
+
+
+def scalar_from_per_sample(loss: torch.Tensor) -> torch.Tensor:
+    """The scalar the reference differentiates: the sum of the unreduced loss."""
+    return torch.sum(loss)

@@ -1,0 +1,217 @@
+"""The HDR-Synth training loop (counterpart of ``run_synth_training`` in
+``singlehdr_tpu.train.loop``): data, degradation, steps, checkpoints and
+metrics for per-net pretraining and joint training.
+
+The host half of the feed is the JAX package's own numpy code (the
+``RandomSampleLoader`` over ``data.synth.get_train_dataset``, the
+``jpeg_roundtrip_batch`` codec).  Per batch, one packed buffer (crf, invcrf,
+t as float32, the HDR patch as float16, as in JAX) goes to the card in one
+copy from pinned memory; the capture simulation (K1 for the CRF) runs there.
+Producer threads prepare batches ahead of the step, so the JPEG round trip of
+the next batch overlaps the current step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from singlehdr_tpu.data.jpeg import jpeg_roundtrip_batch
+from singlehdr_tpu.data.loader import RandomSampleLoader
+from singlehdr_tpu_torch.ops.degradation import (
+    jpeg_quality_ladder,
+    loss_mask_from_levels,
+    simulate_capture,
+)
+from singlehdr_tpu_torch.train.checkpoint import CheckpointManager
+from singlehdr_tpu_torch.train.metrics import Mean, MetricsWriter
+from singlehdr_tpu_torch.train.state import TrainState
+
+
+@dataclasses.dataclass
+class LoopConfig:
+    batch_size: int = 16
+    iterations: int = 5_000_000     # the reference's "EPOCHS" are iterations
+    ckpt_every: int = 1000
+    log_every: int = 100
+    image_log_every: int = 1000
+    n_workers: int = 16
+    seed: int = 0
+    use_jpeg: bool = True           # False feeds the quantized LDR itself
+    prefetch: int = 2               # batches prepared ahead of the step
+    prefetch_producers: int = 2     # concurrent next_batch producers
+
+
+_TORCH_DTYPE = {np.dtype(np.float32): torch.float32, np.dtype(np.float16): torch.float16,
+                np.dtype(np.uint8): torch.uint8}
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2).contiguous()
+
+
+def _upload(arrays, device: torch.device) -> list:
+    """numpy arrays -> tensors on ``device`` through ONE copy of one packed
+    byte buffer (pinned when the device is a GPU)."""
+    raw = [np.ascontiguousarray(a).reshape(-1).view(np.uint8) for a in arrays]
+    host = torch.empty(sum(r.size for r in raw), dtype=torch.uint8,
+                       pin_memory=device.type == "cuda")
+    host.numpy()[:] = np.concatenate(raw)
+    buf = host.to(device, non_blocking=True)
+    out, off = [], 0
+    for a, r in zip(arrays, raw):
+        out.append(buf[off:off + r.size].view(_TORCH_DTYPE[a.dtype]).reshape(a.shape))
+        off += r.size
+    return out
+
+
+class SynthBatchPipeline:
+    """HDR-Synth step inputs: loader -> upload -> capture simulation on the
+    device -> host JPEG -> loss mask.  ``next_batch`` returns NCHW tensors
+    ldr / jpeg / clipped_hdr_t / hdr_t, mask [b, 1, 1, 1] and invcrf [b, k]."""
+
+    def __init__(self, dataset, cfg: LoopConfig, device: torch.device):
+        self._loader = RandomSampleLoader(dataset, cfg.batch_size, n_workers=cfg.n_workers,
+                                          seed=cfg.seed)
+        self._cfg = cfg
+        self._device = device
+        self._qualities = jpeg_quality_ladder(cfg.batch_size)
+        self._generator = torch.Generator(device=device).manual_seed(cfg.seed)
+        self._lock = threading.Lock()  # the generator is shared by the producers
+
+    def next_batch(self) -> dict:
+        hdr, crf, invcrf, t = self._loader.read_batch()
+        # float32 fields first: every field then starts at a multiple of its size
+        crf, invcrf, t, hdr = _upload(
+            [np.asarray(crf, np.float32), np.asarray(invcrf, np.float32),
+             np.asarray(t, np.float32), np.asarray(hdr, np.float16)], self._device)
+        hdr = _nchw(hdr).float()
+        with self._lock:
+            sim = simulate_capture(self._generator, hdr, crf, t)
+        levels = sim.quantized_u8
+        if self._cfg.use_jpeg:
+            host = sim.quantized_u8.permute(0, 2, 3, 1).contiguous().cpu().numpy()
+            levels = _nchw(_upload([jpeg_roundtrip_batch(host, self._qualities)], self._device)[0])
+        return {
+            "ldr": sim.ldr,
+            "jpeg": levels.float() / 255.0,
+            "clipped_hdr_t": sim.clipped_hdr_t,
+            "hdr_t": sim.hdr_t,
+            "mask": loss_mask_from_levels(levels),
+            "invcrf": invcrf,
+        }
+
+    def close(self) -> None:
+        self._loader.close()
+
+
+class _PrefetchError:
+    """Carries a producer's exception across the queue."""
+
+    def __init__(self, error: BaseException):
+        self.error = error
+
+
+class _Prefetcher:
+    """Runs a batch producer on ``producers`` threads, ``depth`` batches
+    ahead; the batch order across producers is not deterministic."""
+
+    def __init__(self, produce: Callable[[], dict], depth: int, producers: int = 1):
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
+        self._stop = threading.Event()
+
+        def loop():
+            while not self._stop.is_set():
+                try:
+                    batch = produce()
+                except Exception as e:  # re-raised by next() in the consumer
+                    batch = _PrefetchError(e)
+                while not self._stop.is_set():
+                    try:
+                        self._q.put(batch, timeout=1.0)
+                        break
+                    except queue.Full:
+                        continue
+                if isinstance(batch, _PrefetchError):
+                    return
+
+        self._threads = [threading.Thread(target=loop, daemon=True, name=f"prefetch{i}")
+                         for i in range(max(1, producers))]
+        for t in self._threads:
+            t.start()
+
+    def next(self) -> dict:
+        item = self._q.get()
+        if isinstance(item, _PrefetchError):
+            raise item.error
+        return item
+
+    def close(self, timeout: float = 30.0) -> None:
+        self._stop.set()
+        deadline = time.monotonic() + timeout
+        for t in self._threads:
+            while t.is_alive() and time.monotonic() < deadline:
+                try:  # unblock a producer waiting on a full queue
+                    self._q.get_nowait()
+                except queue.Empty:
+                    pass
+                t.join(timeout=0.1)
+
+
+def run_synth_training(*, module_name: str, state: TrainState, step_fn: Callable, dataset,
+                       cfg: LoopConfig, ckpt_dir: str, log_dir: str,
+                       batch_to_args: Callable[[dict], tuple],
+                       writer: Optional[MetricsWriter] = None,
+                       image_taps: tuple = ()) -> TrainState:
+    """Pretraining / joint loop over HDR-Synth (the reference's train.py
+    shape): resume from the latest checkpoint in ``ckpt_dir``, train to
+    ``cfg.iterations``, checkpoint at step 1 and every ``ckpt_every`` steps
+    and at the last step, log the running loss."""
+    owned_writer = writer is None
+    writer = writer or MetricsWriter(log_dir)
+    mgr = CheckpointManager(ckpt_dir)
+    state = mgr.restore(state)
+    start_step = state.step
+    pipeline = SynthBatchPipeline(dataset, cfg, state.device)
+    prefetcher = _Prefetcher(pipeline.next_batch, cfg.prefetch, cfg.prefetch_producers)
+    tracker = Mean(f"loss_{module_name}")
+    try:
+        while state.step < cfg.iterations:
+            t0 = time.perf_counter()
+            batch = prefetcher.next()
+            loss, aux = step_fn(state, *batch_to_args(batch))
+            step = state.step
+            tracker.update(float(loss))
+            if step % cfg.log_every == 0 or step == 1:
+                step_time = time.perf_counter() - t0
+                writer.scalar(f"{module_name}/loss", tracker.result(), step)
+                writer.scalar(f"{module_name}/step_time_s", step_time, step)
+                print(f"[{module_name}] step {step}  loss {tracker.result():.5f}  "
+                      f"({step_time:.2f}s/step)", flush=True)
+                tracker.reset()
+            if step % cfg.image_log_every == 0 or step == 1:
+                for tag in image_taps:
+                    if tag in aux:
+                        writer.image(f"{module_name}/{tag}", aux[tag], step)
+                writer.image(f"{module_name}/jpeg", batch["jpeg"], step)
+            if step % cfg.ckpt_every == 0 or step == 1:
+                mgr.save(state)
+        # the last step, when off the cadence: downstream stages restore it
+        if state.step > start_step and state.step != 1 and state.step % cfg.ckpt_every:
+            mgr.save(state)
+        return state
+    finally:
+        prefetcher.close()
+        pipeline.close()
+        mgr.wait()
+        mgr.close()
+        if owned_writer:
+            writer.close()
+        else:
+            writer.flush()

@@ -1,0 +1,156 @@
+"""Train steps reproducing the reference drivers' objectives (counterpart of
+``singlehdr_tpu.train.steps``; the same losses, weights and aux keys).
+
+  pretrain deq:  sum_b mask * mean (clip(deq(jpeg)) - ldr)^2
+  pretrain lin:  sum_b mask * (l2 + 0.1 crf_mse)
+  pretrain hal:  sum_b mask * (l1_mu + 1e-3 perc + 0.1 tv)
+  joint:         deq + (10 l2_lin + crf_mse) + hal under ONE Adam
+  finetune:      sum |mu(renorm(ref_out)) - mu(hdr)| under ONE Adam over all four nets
+
+Losses are unreduced per sample and the objective is their SUM, as TF's
+``tape.gradient`` reduces a non-scalar target.  Like the JAX package, the
+lin terms are paired per sample (the reference broadcast [b,1] against
+[b,1,1,1]) and the finetune step feeds hal B_pred.
+
+A step puts the nets in train mode (K2-K4 off, as in JAX), runs the loss
+function, takes ONE ``backward()`` of the summed loss and one
+``optimizer.step()``; BatchNorm statistics update in the forward.  After it
+each parameter's ``.grad`` holds that step's gradient.  The loss functions
+are public so that a caller can time forward, backward and optimizer apart.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple
+
+import torch
+
+from singlehdr_tpu_torch.ops.color import bgr_to_rgb
+from singlehdr_tpu_torch.ops.curves import apply_rf
+from singlehdr_tpu_torch.ops.losses import hallucination_loss, masked_l2, scalar_from_per_sample
+from singlehdr_tpu_torch.ops.masks import clip, highlight_alpha
+from singlehdr_tpu_torch.ops.tonemap import mu_tonemap
+from singlehdr_tpu_torch.train.state import TrainState
+
+
+@dataclasses.dataclass(frozen=True)
+class LossWeights:
+    """Weights that differ between the pretrain and joint configurations."""
+
+    crf: float = 0.1           # 0.1 pretrain (train.py:191), 1.0 joint
+    lin_l2: float = 1.0        # 1.0 pretrain, 10.0 joint (joint_training.py:160)
+    perceptual: float = 0.001
+    tv: float = 0.1
+
+
+PRETRAIN_WEIGHTS = LossWeights()
+JOINT_WEIGHTS = LossWeights(crf=1.0, lin_l2=10.0)
+
+
+class StepOutput(NamedTuple):
+    loss: torch.Tensor
+    aux: dict
+
+
+def _crf_mse(pred_invcrf, invcrf_gt):
+    return torch.mean(torch.square(pred_invcrf - invcrf_gt), dim=1).reshape(-1, 1, 1, 1)
+
+
+def deq_loss(nets, ldr, jpeg, mask):
+    pred = clip(nets["deq"](jpeg), 0.0, 1.0)
+    per_sample = masked_l2(pred, ldr, mask)
+    return scalar_from_per_sample(per_sample), {"loss_deq": per_sample}
+
+
+def lin_loss(nets, ldr, clipped_hdr_t, mask, invcrf_gt):
+    pred_invcrf = nets["lin"](ldr)
+    pred_lin = apply_rf(ldr, pred_invcrf)
+    crf_mse = _crf_mse(pred_invcrf, invcrf_gt)
+    per_sample = (masked_l2(pred_lin, clipped_hdr_t) + PRETRAIN_WEIGHTS.crf * crf_mse) * mask
+    return scalar_from_per_sample(per_sample), {"loss_lin": per_sample, "crf_mse": crf_mse.mean()}
+
+
+def hal_loss(nets, vgg, hdr_t, clipped_hdr_t, mask):
+    alpha = highlight_alpha(clipped_hdr_t)
+    y = clipped_hdr_t + alpha * bgr_to_rgb(nets["hal"](clipped_hdr_t))
+    per_sample = hallucination_loss(y, hdr_t, vgg, mask, perceptual_weight=PRETRAIN_WEIGHTS.perceptual,
+                                    tv_weight=PRETRAIN_WEIGHTS.tv)
+    return scalar_from_per_sample(per_sample), {"loss_hal": per_sample, "y_final": y}
+
+
+def joint_loss(nets, vgg, ldr, jpeg, clipped_hdr_t, hdr_t, mask, invcrf_gt):
+    alpha = highlight_alpha(clipped_hdr_t)
+    c_pred = clip(nets["deq"](jpeg), 0.0, 1.0)
+    loss_deq = masked_l2(c_pred, ldr, mask)
+    pred_invcrf = nets["lin"](ldr)
+    b_pred = apply_rf(ldr, pred_invcrf)
+    crf_mse = _crf_mse(pred_invcrf, invcrf_gt)
+    loss_lin = (JOINT_WEIGHTS.lin_l2 * masked_l2(b_pred, clipped_hdr_t)
+                + JOINT_WEIGHTS.crf * crf_mse) * mask
+    a_pred = clipped_hdr_t + alpha * bgr_to_rgb(nets["hal"](clipped_hdr_t))
+    loss_hal = hallucination_loss(a_pred, hdr_t, vgg, mask, perceptual_weight=JOINT_WEIGHTS.perceptual,
+                                  tv_weight=JOINT_WEIGHTS.tv)
+    total = scalar_from_per_sample(loss_deq + loss_lin + loss_hal)
+    aux = {"loss_deq": loss_deq, "loss_lin": loss_lin, "loss_hal": loss_hal,
+           "crf_mse": crf_mse.mean(), "c_pred": c_pred, "b_pred": b_pred, "a_pred": a_pred,
+           "alpha": alpha}
+    return total, aux
+
+
+def finetune_loss(nets, ldr, hdr):
+    c_pred = clip(nets["deq"](ldr), 0.0, 1.0)
+    pred_invcrf = nets["lin"](c_pred)
+    b_pred = apply_rf(c_pred, pred_invcrf)
+    alpha = highlight_alpha(b_pred)
+    a_pred = b_pred + alpha * bgr_to_rgb(nets["hal"](b_pred))
+    out = nets["ref"](torch.cat([a_pred, b_pred, c_pred], dim=1))
+    # renormalise the output mean to 0.5 before the log-domain L1
+    out = out / (1e-6 + torch.mean(out, dim=(1, 2, 3), keepdim=True)) * 0.5
+    loss_map = torch.abs(mu_tonemap(out) - mu_tonemap(hdr))
+    aux = {"loss_ref": loss_map.mean(), "c_pred": c_pred, "b_pred": b_pred, "a_pred": a_pred,
+           "out": out}
+    return torch.sum(loss_map), aux
+
+
+def apply_gradients(state: TrainState, loss: torch.Tensor) -> None:
+    """One backward of the summed loss, one Adam step, step + 1."""
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    state.optimizer.step()
+    state.step += 1
+
+
+def _step(loss_fn: Callable, *bound) -> Callable[..., StepOutput]:
+    def train_step(state: TrainState, *batch) -> StepOutput:
+        state.nets.train()
+        loss, aux = loss_fn(state.nets, *bound, *batch)
+        apply_gradients(state, loss)
+        return StepOutput(loss.detach(), {k: v.detach() for k, v in aux.items()})
+
+    return train_step
+
+
+def make_deq_train_step():
+    """Dequantization pretraining: ``step(state, ldr, jpeg, mask)``."""
+    return _step(deq_loss)
+
+
+def make_lin_train_step():
+    """Linearization pretraining: ``step(state, ldr, clipped_hdr_t, mask, invcrf_gt)``."""
+    return _step(lin_loss)
+
+
+def make_hal_train_step(vgg):
+    """Hallucination pretraining: ``step(state, hdr_t, clipped_hdr_t, mask)``."""
+    return _step(hal_loss, vgg)
+
+
+def make_joint_train_step(vgg):
+    """Joint deq + lin + hal: ``step(state, ldr, jpeg, clipped_hdr_t, hdr_t, mask, invcrf_gt)``."""
+    return _step(joint_loss, vgg)
+
+
+def make_finetune_train_step():
+    """All four nets on HDR-Real: ``step(state, ldr, hdr)``."""
+    return _step(finetune_loss)

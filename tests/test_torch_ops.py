@@ -9,6 +9,7 @@ interpreter.  Tolerance is the golden 2e-5 absolute unless stated; K1 must
 be bit-equal.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -259,10 +260,25 @@ def test_port_imports_no_jax():
         "import singlehdr_tpu_torch, singlehdr_tpu_torch.models, singlehdr_tpu_torch.ops\n"
         "import singlehdr_tpu_torch.inference, singlehdr_tpu_torch.serve\n"
         "import singlehdr_tpu_torch.convert, singlehdr_tpu_torch.cli.serve\n"
+        "import singlehdr_tpu_torch.cli.train, singlehdr_tpu_torch.cli.joint_train\n"
+        "import singlehdr_tpu_torch.models.vgg16, singlehdr_tpu_torch.ops.degradation\n"
+        "import singlehdr_tpu_torch.ops.losses, singlehdr_tpu_torch.ops.tonemap\n"
+        "import singlehdr_tpu_torch.train.state, singlehdr_tpu_torch.train.steps\n"
+        "import singlehdr_tpu_torch.train.checkpoint, singlehdr_tpu_torch.train.loop\n"
+        "import singlehdr_tpu_torch.train.metrics\n"
+        "import tempfile\n"
         "import chip_smoke\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    chip_smoke.write_hdr_files(d, 1)\n"
         "bad = [m for m in ('jax', 'flax', 'optax') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )
+    # the smoke script itself names no module of the JAX package
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    named = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    named += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    assert not [m for m in named if m.split(".")[0] in ("singlehdr_tpu", "jax", "flax", "optax")]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [ROOT, os.environ.get("PYTHONPATH")])))
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
