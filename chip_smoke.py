@@ -8,9 +8,14 @@ widths, and checks each path against the CPU plain path.
 
 Phases (each prints its own lines; any failure exits non-zero):
   1 device   card name and power limit (nvidia-smi); TF32 off, true f32
-  2 build    nvcc build of singlehdr_tpu_torch/csrc into build/kernels/
-  3 kernels  K1..K4 vs plain at batch 4, 576x576 (512 + the 32 px pad):
-             K1 bit-equal; K2..K4 max|err| / max|plain| <= 1e-4
+  2 build    nvcc build of singlehdr_tpu_torch/csrc into build/kernels/ (one
+             nvcc per source, in parallel); K2/K4's conv kernel holds
+             tensor-core instructions (HMMA/HGMMA) in its SASS
+  3 kernels  K1..K4 vs plain at batch 4, 576x576 (512 + the 32 px pad), and
+             K4 at an odd [1, 64, 37, 53] (the ceil edge of its SAME pool):
+             K1 bit-equal; K2..K4 max|err| / max|plain| <= 1e-4; each case's
+             kernel ms, plain ms, bound ms and share of the bound; K1's
+             library route (grid_sample) held to K1's plain version and timed
   4 serving  seeded ReverseCameraPipeline on the card behind make_server;
              4 client threads POST 8 JPEG 512x512 images
   5 parity   one 512x512 image on the card vs the CPU plain path
@@ -19,7 +24,8 @@ Phases (each prints its own lines; any failure exits non-zero):
   7 timing   p50 latency and img/s at batch 1 and 8, per-net times at batch 8
   8 K1-bwd   vs plain at [16, 3*256^2] and [4, 3*576^2]: gx bit-equal, grf
              max|err| / max|plain| <= 1e-5 against the plain version in
-             float64; a curve-gradient-only case
+             float64; a curve-gradient-only case; the library route
+             (grid_sample's backward) held to the plain version and timed
   9 training cli.joint_train.run at batch 16, 256^2 on synthetic .hdr files:
              6 steps, then a resume to 8; K1-bwd once per step, K2..K4 never;
              one cli.train --lin step
@@ -29,7 +35,18 @@ Phases (each prints its own lines; any failure exits non-zero):
              one finetune step at 4 x 256^2 on the card (K1-bwd's gx branch)
   11 timing  joint step at batch 16, 256^2: forward + loss, backward, Adam;
              K1-bwd's share of the step
-The second-to-last line is the kernels' JSON record, the last the result.
+The second-to-last line is the kernels' JSON record (with each kernel's
+launches per serving batch and per training step, its bound, and the library
+route's time where PyTorch computes the same function: grid_sample for K1,
+its backward for K1-bwd, cuDNN's convs + the pool for K2 and K4; none for
+K3), the last the result.  K2 and K4 count one launch a stage call, which
+makes two launches of the conv kernel (``kernel_launches_per_stage``).
+
+A kernel's bound is the least time the card could take for its work: the
+larger of its bytes (each input read once, each output written once) over
+3.35 TB/s and its FLOP over 165 TFLOP/s, the rate of f32-accurate products on
+the tensor cores (three TF32 products each, 495 / 3); the 67 TFLOP/s of f32 on
+the CUDA cores is printed beside it.  Peaks: NVIDIA's H100 SXM data sheet.
 """
 
 from __future__ import annotations
@@ -57,6 +74,8 @@ PATH_REL_TOL = 1e-4     # the whole served path vs the CPU plain path (f32 sum o
 SEED = 0
 TRAIN_BATCH = 16        # the reference's joint configuration: batch 16 at 256^2
 TRAIN_HW = 256
+JOINT_RUNS = ((6, 0), (8, 6))  # phase 9: (iterations, resumed from)
+TRAIN_STEPS = sum(n - start for n, start in JOINT_RUNS) + 1  # + one cli.train --lin step
 BWD_SHAPES = ((TRAIN_BATCH, 3 * TRAIN_HW * TRAIN_HW), (KERNEL_BATCH, 3 * 576 * 576))
 BWD_REL_TOL = 1e-5      # grf vs the float64 plain version: f32 atomic sums
 STEP_LOSS_REL_TOL = 1e-4
@@ -77,6 +96,19 @@ PLANTED_FAULTS = ("lin.crf_feature_net.stem_bn.weight", "lin.crf_feature_net.ste
 
 # per batch of the pipeline: launches of each kernel
 PER_BATCH = {"apply_rf": 1, "unet_stage2": 6, "lin_feature_stem": 1, "encoder_stage2": 2}
+HBM_BYTES_PER_S = 3.35e12
+F32_TENSOR_FLOPS = 495e12 / 3   # 3xTF32
+F32_SIMT_FLOPS = 67e12
+ODD_K4_SHAPE = (1, 64, 37, 53)  # hal enc2's widths at odd H, W
+# the library route of each kernel (library_ms): K1 and K1-bwd are grid_sample
+# and its backward, K2 and K4 their plain versions (cuDNN's f32 convs + the
+# pool); K3 has none.  A library route is held to its kernel's plain version
+# within LIBRARY_REL_TOL: grid_sample rounds 2x - 1, and its backward sums the
+# curve gradient in its own atomic order
+LIBRARY_REL_TOL = 1e-4
+# K2 and K4 count one launch a stage call; each call makes this many launches
+# of the conv kernel (conv1, then conv2 with the pool)
+KERNEL_LAUNCHES_PER_STAGE = {"unet_stage2": 2, "encoder_stage2": 2}
 SOURCES = {
     "apply_rf": ("singlehdr_tpu_torch/csrc/apply_rf.cu",
                  "singlehdr_tpu/ops/pallas/apply_rf_pallas.py:159"),
@@ -114,6 +146,28 @@ def cuda_ms(fn, iters: int = 10) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def check_tensor_core_sass() -> None:
+    """Phase 2: K2/K4's conv kernel runs on the tensor cores: every
+    instantiation's SASS (cuobjdump of the built library) holds HMMA
+    (mma.sync) or HGMMA (wgmma) instructions."""
+    from pathlib import Path
+
+    from singlehdr_tpu_torch.ops.cuda import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(_build.build())], capture_output=True,
+                          text=True, check=True).stdout
+    convs = [f for f in sass.split("Function : ")[1:] if "conv_gemm_kernel" in f.split()[0]]
+    counts = [(f.count(" HMMA."), f.count(" HGMMA.")) for f in convs]
+    per = [hmma + hgmma for hmma, hgmma in counts]
+    print(f"  conv_gemm_kernel: {len(convs)} instantiations; tensor-core instructions in SASS: "
+          f"HMMA {sum(c[0] for c in counts)}, HGMMA {sum(c[1] for c in counts)} "
+          f"(per instantiation {min(per, default=0)}..{max(per, default=0)})", flush=True)
+    if not convs or not min(per) > 0:
+        raise AssertionError("K2/K4's conv kernel has instantiations without tensor-core "
+                             "instructions in its SASS")
 
 
 def kernel_cases(pipe, dev):
@@ -164,7 +218,93 @@ def kernel_cases(pipe, dev):
         cases.append(("encoder_stage2", f"hal.{name} {tuple(h.shape)}", args))
         h, _ = encoder_stage2_plain(*args)
         h = h.contiguous()
+    enc = pipe.hal.enc2
+    odd = torch.rand(*ODD_K4_SHAPE, generator=g, device=dev) * 50
+    cases.append(("encoder_stage2", f"hal.enc2 odd {ODD_K4_SHAPE}",
+                  (odd, enc.conv1.weight, bias(enc.conv1.bias.numel()), enc.conv2.weight,
+                   bias(enc.conv2.bias.numel()))))
     return cases
+
+
+def nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
+
+
+def kernel_flop(name: str, args) -> float:
+    """FLOP of one call: the convs' multiply-adds (x2); K1's lerp, 3 a value."""
+    if name in ("unet_stage2", "encoder_stage2"):
+        x, w1, _, w2, _ = args
+        b, c, h, w = x.shape
+        f, _, k, _ = w1.shape
+        return 2.0 * b * h * w * f * k * k * (c + f)
+    if name == "lin_feature_stem":
+        x, k7, _ = args
+        b, _, h, w = x.shape
+        f, c, k, _ = k7.shape
+        return 2.0 * b * -(-h // 2) * -(-w // 2) * f * c * k * k
+    return 3.0 * args[0].numel()
+
+
+def bound(flop: float, moved: int) -> tuple:
+    """(bound ms, what sets it, the f32 CUDA-core bound ms)."""
+    ops_ms, bytes_ms = flop / F32_TENSOR_FLOPS * 1e3, moved / HBM_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes",
+            max(flop / F32_SIMT_FLOPS * 1e3, bytes_ms))
+
+
+def rf_grid(x: torch.Tensor) -> torch.Tensor:
+    """K1's x [b, ...] as grid_sample's sampling grid [b, 1, n, 2]: (2x - 1, 0)."""
+    u = x.reshape(x.shape[0], 1, -1, 1) * 2 - 1
+    return torch.cat([u, torch.zeros_like(u)], dim=-1).contiguous()
+
+
+def apply_rf_library(rf: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """K1's function as one PyTorch call: the curve as a [b, 1, 1, k] image,
+    sampled bilinearly at ``rf_grid(x)``.  align_corners maps x = 0 and 1 to
+    its first and last samples, and border padding is the clip of both lerp
+    indices.  Returns [b, 1, 1, n]."""
+    b, k = rf.shape
+    return torch.nn.functional.grid_sample(rf.view(b, 1, 1, k), grid, mode="bilinear",
+                                           padding_mode="border", align_corners=True)
+
+
+def apply_rf_bwd_library(rf: torch.Tensor, grid: torch.Tensor, g: torch.Tensor) -> tuple:
+    """K1-bwd's function as one PyTorch call, grid_sample's backward (bilinear,
+    border, align_corners): (the grid's gradient [b, 1, n, 2], the curve's
+    [b, 1, 1, k]).  gx is twice the grid gradient's first part (grid = 2x - 1)."""
+    b, k = rf.shape
+    grf, ggrid = torch.ops.aten.grid_sampler_2d_backward(
+        g.view(b, 1, 1, -1), rf.view(b, 1, 1, k), grid, 0, 1, True, [True, True])
+    return ggrid, grf
+
+
+def k1_library_error(x: torch.Tensor, rf: torch.Tensor, want: torch.Tensor) -> float:
+    """max|err| / max|plain| of K1's library route against K1's plain output."""
+    got = apply_rf_library(rf, rf_grid(x)).reshape(x.shape)
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    if not rel <= LIBRARY_REL_TOL:
+        raise AssertionError(f"grid_sample is not K1's function: rel err {rel:.3e}")
+    return rel
+
+
+def k1_bwd_library_error(x, rf, g, gx_plain, grf_ref) -> tuple:
+    """(grf's and gx's max|err| / max|ref|, pixels left out of gx's) of
+    K1-bwd's library route.  grf is held to the plain version in float64.
+    gx is held to the f32 plain version away from the kinks of the lerp, where
+    the two take different one-sided derivatives: y = (k-1) x within 1e-3 of
+    an integer, x = 0 among them, and bins that grid_sample's rounding of
+    2x - 1 moves."""
+    b, k = rf.shape
+    ggrid, grf = apply_rf_bwd_library(rf, rf_grid(x), g)
+    grf_rel = ((grf.view(b, k) - grf_ref).abs().max() / grf_ref.abs().max()).item()
+    y = x * (k - 1)
+    away = (y - y.round()).abs() > 1e-3
+    gx = 2 * ggrid[..., 0].reshape(x.shape)
+    gx_rel = ((gx - gx_plain)[away].abs().max() / gx_plain.abs().max()).item()
+    if not (grf_rel <= LIBRARY_REL_TOL and gx_rel <= LIBRARY_REL_TOL):
+        raise AssertionError(f"grid_sample's backward is not K1-bwd's function: grf rel "
+                             f"{grf_rel:.3e}, gx rel {gx_rel:.3e}")
+    return grf_rel, gx_rel, int((~away).sum())
 
 
 def check_kernels(pipe, dev) -> dict:
@@ -176,8 +316,9 @@ def check_kernels(pipe, dev) -> dict:
         "lin_feature_stem": (lin_stem_cuda.lin_feature_stem, lin_stem_cuda.lin_feature_stem_plain),
         "encoder_stage2": (enc_pool_cuda.encoder_stage2, enc_pool_cuda.encoder_stage2_plain),
     }
-    report = {n: {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-              for n in plain}
+    report = {n: {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                  "bound_ms": 0.0, "ops_bound_ms": 0.0, "simt_bound_ms": 0.0,
+                  "library_ms": None if n == "lin_feature_stem" else 0.0} for n in plain}
     with torch.inference_mode():
         for name, label, args in kernel_cases(pipe, dev):
             kernel, ref = plain[name]
@@ -200,13 +341,31 @@ def check_kernels(pipe, dev) -> dict:
             elif not rel_err <= KERNEL_REL_TOL:
                 raise AssertionError(f"{name} {label}: rel err {rel_err:.3e} > {KERNEL_REL_TOL}")
             ms, plain_ms = cuda_ms(lambda: kernel(*args)), cuda_ms(lambda: ref(*args))
+            library = ""
+            if name == "apply_rf":  # grid_sample, timed on a grid built beforehand
+                lib_rel = k1_library_error(*args, want[0])
+                grid = rf_grid(args[0])
+                lib_ms = cuda_ms(lambda: apply_rf_library(args[1], grid))
+                library = f"  library (grid_sample) {lib_ms:.3f} ms, rel {lib_rel:.3e}"
+            else:
+                lib_ms = plain_ms  # K2, K4: cuDNN; K3: none (library_ms stays None)
+            flop, moved = kernel_flop(name, args), nbytes(args) + nbytes(want)
+            bound_ms, bound_by, simt_ms = bound(flop, moved)
             r = report[name]
             r["max_abs_err"] = max(r["max_abs_err"], abs_err)
             r["max_rel_err"] = max(r["max_rel_err"], rel_err)
             r["ms"] += ms
             r["plain_ms"] += plain_ms
-            print(f"  {name:17s} {label:34s} max_abs_err {abs_err:.3e} rel {rel_err:.3e} "
-                  f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms", flush=True)
+            if r["library_ms"] is not None:
+                r["library_ms"] += lib_ms
+            r["bound_ms"] += bound_ms
+            r["ops_bound_ms"] += bound_ms if bound_by == "operations" else 0.0
+            r["simt_bound_ms"] += simt_ms
+            print(f"  {name:17s} {label:36s} max_abs_err {abs_err:.3e} rel {rel_err:.3e} "
+                  f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {bound_ms:.3f} ms "
+                  f"({bound_by}; f32 CUDA cores {simt_ms:.3f})  share {bound_ms / ms:.1%}  "
+                  f"{flop / 1e9:.1f} GFLOP {moved / 1e6:.1f} MB  {flop / ms / 1e9:.1f} TFLOP/s"
+                  f"{library}", flush=True)
     torch.cuda.synchronize()
     return report
 
@@ -374,8 +533,8 @@ def check_k1_bwd(dev) -> dict:
     """Phase 8: K1-bwd vs apply_rf_bwd_plain at the training and serving shapes."""
     from singlehdr_tpu_torch.ops.cuda.apply_rf_cuda import apply_rf_bwd, apply_rf_bwd_plain
 
-    report = {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-              "rf_only_ms": None, "rf_only_plain_ms": None}
+    report = {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+              "bound_ms": 0.0, "ops_bound_ms": 0.0, "rf_only_ms": None, "rf_only_plain_ms": None}
     for i, (b, n) in enumerate(BWD_SHAPES):
         x, rf, g = k1_bwd_inputs(dev, b, n, SEED + i)
         gx, grf = apply_rf_bwd(x, rf, g, True, True)
@@ -403,15 +562,25 @@ def check_k1_bwd(dev) -> dict:
         plain_ms = cuda_ms(lambda: apply_rf_bwd_plain(x, rf, g, True, True))
         rf_ms = cuda_ms(lambda: apply_rf_bwd(x, rf, g, False, True))
         rf_plain_ms = cuda_ms(lambda: apply_rf_bwd_plain(x, rf, g, False, True))
+        lib_grf_rel, lib_gx_rel, kinks = k1_bwd_library_error(x, rf, g, pgx, ref)
+        grid = rf_grid(x)
+        lib_ms = cuda_ms(lambda: apply_rf_bwd_library(rf, grid, g))
         report["max_abs_err"] = max(report["max_abs_err"], abs_err)
         report["max_rel_err"] = max(report["max_rel_err"], rel_err)
         report["ms"] += ms
         report["plain_ms"] += plain_ms
+        report["library_ms"] += lib_ms
+        moved = nbytes((x, rf, g, pgx, pgrf))
+        bound_ms, _, _ = bound(0.0, moved)
+        report["bound_ms"] += bound_ms
         if i == 0:  # the joint step's case: x = ldr needs no gradient
             report["rf_only_ms"], report["rf_only_plain_ms"] = rf_ms, rf_plain_ms
         print(f"  apply_rf_bwd [{b}, {n}]: gx bit-equal; grf vs float64 plain: max_abs_err {abs_err:.3e} "
               f"rel {rel_err:.3e} (f32 plain: rel {plain_rel:.3e}; max|grf| {scale:.1f}); kernel {ms:.3f} ms plain {plain_ms:.3f} ms; "
-              f"grf only: kernel {rf_ms:.3f} ms plain {rf_plain_ms:.3f} ms", flush=True)
+              f"grf only: kernel {rf_ms:.3f} ms plain {rf_plain_ms:.3f} ms; bound {bound_ms:.4f} ms "
+              f"(bytes: {moved / 1e6:.1f} MB), share {bound_ms / ms:.1%}; library (grid_sample's "
+              f"backward) {lib_ms:.3f} ms, grf rel {lib_grf_rel:.3e}, gx rel {lib_gx_rel:.3e} "
+              f"off {kinks} kink pixels", flush=True)
     return report
 
 
@@ -469,7 +638,7 @@ def joint_training(card: str) -> dict:
                 "--ckpt_every", "3", "--log_every", "1", "--workers", "8",
                 "--deq_ckpt", ck["deq"], "--lin_ckpt", ck["lin"], "--hal_ckpt", ck["hal"],
                 "--jnt_ckpt", ck["jnt"]]
-        for iterations, start in ((6, 0), (8, 6)):
+        for iterations, start in JOINT_RUNS:
             kernels.reset_launches()
             t0 = time.perf_counter()
             state = joint_train.run(joint_train.build_parser().parse_args(
@@ -678,6 +847,7 @@ def main() -> int:
     print(f"  kernels ready in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 0.0:.1f} s)",
           flush=True)
+    check_tensor_core_sass()
 
     from singlehdr_tpu_torch.inference import HdrPredictor
     from singlehdr_tpu_torch.models import build_pipeline
@@ -721,15 +891,24 @@ def main() -> int:
     train_timings(dev, card, report["apply_rf_bwd"])
     torch.cuda.synchronize()
 
-    # launches: the serving path's (phase 4) plus the training path's (phase 9)
+    # launches: the serving path's (phase 4) plus the training path's (phase 9);
+    # per serving batch and per training step as counted in those runs
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
          "launches": launches.get(name, 0) + train_launches[name],
          "launches_by_path": {"serving": launches.get(name, 0), "training": train_launches[name]},
-         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"]}
+         "launches_per_batch": {"serving": launches.get(name, 0) / stats["device_batches"],
+                                "training_step": train_launches[name] / TRAIN_STEPS},
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"],
+         "bound_by": "operations" if r["ops_bound_ms"] >= r["bound_ms"] / 2 else "bytes",
+         "library_ms": r["library_ms"]}
         for name, r in report.items()
     ]
+    for k in kernels:
+        if k["name"] in KERNEL_LAUNCHES_PER_STAGE:
+            k["kernel_launches_per_stage"] = KERNEL_LAUNCHES_PER_STAGE[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

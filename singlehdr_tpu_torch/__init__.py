@@ -15,13 +15,14 @@ models    ``nn.Module`` counterparts of the four nets, the composite pipeline
           and the frozen VGG16 of the perceptual loss.
 train     Train state, steps, checkpoints, metrics and the HDR-Synth loop.
 cli       The serving, per-net training and joint training entry points.
+calib     EMoR curves and the CRF bank; data: HDR IO, HDR-Synth, the loader.
 
 Every kernel wrapper takes its plain PyTorch version for a tensor on the CPU
 and launches its CUDA kernel, or raises, for a tensor on the GPU.
 
-This package never imports JAX; it reuses only numpy-only modules of the JAX
-package: ``calib``, ``utils``, and ``data`` (``hdr_io``, ``synth``,
-``loader``, ``jpeg``).
+This package imports neither JAX nor anything of the JAX package.  The
+numpy-only modules it needs from there (``calib``, ``data``: ``hdr_io``,
+``synth``, ``loader``, ``jpeg``; ``utils``) are copied into it.
 """
 
 __version__ = "0.1.0"

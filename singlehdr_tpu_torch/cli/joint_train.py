@@ -15,14 +15,14 @@ from __future__ import annotations
 import argparse
 import os
 
-from singlehdr_tpu.data.synth import get_train_dataset
-from singlehdr_tpu.utils import create_run_dirs, str2bool
 from singlehdr_tpu_torch.cli import training_device
+from singlehdr_tpu_torch.data.synth import get_train_dataset
 from singlehdr_tpu_torch.models.vgg16 import Vgg16Features
 from singlehdr_tpu_torch.train.checkpoint import restore_pretrained_subnets
 from singlehdr_tpu_torch.train.loop import LoopConfig, run_synth_training
 from singlehdr_tpu_torch.train.state import init_multi_state
 from singlehdr_tpu_torch.train.steps import make_joint_train_step
+from singlehdr_tpu_torch.utils import create_run_dirs, str2bool
 
 LEARNING_RATE = 1e-5  # joint_training.py:20
 BATCH_SIZE = 16       # joint_training.py:21

@@ -12,13 +12,13 @@ from __future__ import annotations
 import argparse
 import os
 
-from singlehdr_tpu.data.synth import get_train_dataset
-from singlehdr_tpu.utils import create_run_dirs, str2bool
 from singlehdr_tpu_torch.cli import training_device
+from singlehdr_tpu_torch.data.synth import get_train_dataset
 from singlehdr_tpu_torch.models.vgg16 import Vgg16Features
 from singlehdr_tpu_torch.train import steps as steps_mod
 from singlehdr_tpu_torch.train.loop import LoopConfig, run_synth_training
 from singlehdr_tpu_torch.train.state import init_net_state
+from singlehdr_tpu_torch.utils import create_run_dirs, str2bool
 
 LEARNING_RATE = 1e-4  # train.py:20
 BATCH_SIZE = 16       # train.py:19

@@ -1,298 +1,526 @@
-// K2 and K4: one fused encoder stage, two SAME convs + activation + 2x2 pool.
+// K2 and K4: a SAME conv + bias + activation as an implicit GEMM on the tensor
+// cores in 3xTF32, with an optional 2x2 pool in the epilogue.  One fused
+// encoder stage is two launches of this kernel:
 //
-//   act    = ACT(conv_K(ACT(conv_K(x) + b1)) + b2)        (the skip)
-//   pooled = POOL_2x2(act)
+//   mid    = ACT(conv_K(x, w1) + b1)                       (epilogue: store)
+//   act    = ACT(conv_K(mid, w2) + b2);  pooled = POOL(act) (epilogue: store + pool)
 //
-// K2 (LEAKY, avg pool, K in {3,5,7}) replaces unet_stage2 in
-// singlehdr_tpu/ops/pallas/unet_stage_pallas.py (deq/ref U-Net encoder
-// prefix); K4 (ReLU, max pool, K = 3) replaces encoder_stage2 in
+// K2 (leaky ReLU 0.1, 2x2 average pool, VALID: H/2; K in {3, 5, 7}) replaces
+// unet_stage2 in singlehdr_tpu/ops/pallas/unet_stage_pallas.py (deq/ref U-Net
+// encoder prefix); K4 (ReLU, 2x2 max pool, SAME: ceil(H/2), over the in-image
+// members only; K = 3) replaces encoder_stage2 in
 // singlehdr_tpu/ops/pallas/enc_pool_pallas.py (hal enc1/enc2).
 //
-// What the TPU kernels kept out of device memory, this one does too: the
-// conv1 activation.  A block owns one T x T output tile of one image and all
-// F channels.  It stages the input tile plus a 2R halo (R = (K-1)/2) in
-// shared memory, computes conv1 over the tile plus an R halo for all F
-// channels into shared memory, then conv2 from there, and writes the skip
-// and the complete 2x2 pool (the TPU kernels left the W-pair half of the
-// pool to XLA).  conv1 rows/cols outside the image are stored as ZERO, which
-// is what conv2's SAME padding must see (not ACT(b1)).
+// What bounds it on this card: the convs' multiply-adds.  The port is f32, so
+// a product must be f32-accurate: on the CUDA cores that caps the stage at
+// 67 TFLOP/s; on the tensor cores three TF32 products per f32 product
+// (a_hi*b_hi + a_hi*b_lo + a_lo*b_hi, x_hi = rna_tf32(x), x_lo =
+// rna_tf32(x - x_hi), accumulated in f32) cap it at 495 / 3 = 165 TFLOP/s.
+// This kernel takes the second road.  The TPU kernels kept conv1's activation
+// in VMEM; here it is a stored tensor (b4 at 576^2 it costs ~0.1-0.2 ms of
+// HBM traffic, much of it in L2), which removes the halo recompute and the
+// shared-memory ceiling that a fused tile hit at 128 channels.  conv2's SAME
+// padding then sees zeros outside the image by itself.
 //
-// Bound on this card: the two f32 convs are FMA-bound (no TF32 here, the
-// port is f32).  Each thread keeps a register tile of a 2x2 pixel quad x FG
-// output channels (conv2) or a 1x2 pixel pair x FG channels (conv1), so one
-// shared-memory read feeds FG FMAs.  Weights are pre-packed by the wrapper as
-// [C][K][K][F] so a thread's FG channels are one contiguous 32-byte read that
-// the threads of a warp share (broadcast through L1).  The conv1 halo is
-// recomputed per tile: (T+2R)^2 / T^2 of conv1's work.  (Larger register
-// tiles, 2x4 pixels or 16 channels, measured no faster on the H100.)
+// The GEMM, per launch:  M = the output pixels of a 16 x 16 tile of one image,
+// N = BN output channels (blockIdx.y picks the slice), K = C*k*k in
+// (c, kh, kw) order, walked in chunks of `cc` input channels (8, or all C when
+// C is not a multiple of 8; a chunk's K is zero-padded to a multiple of 8).
+// A 3-stage cp.async ring holds, per chunk, the input tile with its halo
+// (4-byte copies; the zero-fill form, source size 0, is the SAME padding) and
+// the chunk's weights, already split into hi/lo planes by the wrapper and laid
+// out as wgmma's K-major core matrices.  A fragments are gathered from the
+// staged tile through a per-k offset table (im2col in shared memory) and split
+// as they are loaded.  A warp owns 2 tile rows x all BN channels.  For BN >= 32
+// the two warpgroups issue wgmma.mma_async m64nBNk8 (tf32), B read from shared
+// memory through a descriptor, A from registers, the next k-steps' A loads
+// overlapping the MMAs in flight.  (An mma.sync m16n8k8 version was bound by
+// its instruction stream, the B fragments' shared-memory loads beside the A
+// gather and split: without its MMAs it ran barely faster.)  For BN = 16
+// (the U-Nets' 7x7 stems) mma.sync m16n8k8 stays: there a wgmma moves a
+// 64 x 8 A operand for a 16-wide product, and measured slower.
+// The epilogue adds the bias, applies the activation, stores NCHW, and pools
+// from registers: the two rows of a pool window sit in one thread (m64 tiles
+// mt and mt + 1), the two columns in lanes g and g ^ 1 (one shuffle).
+//
+// The index maps (tile, halo, offset table, fragment and descriptor layouts,
+// pool) are simulated in numpy by tests/test_torch_conv_gemm.py.
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
 
-enum class Act { kLeaky, kRelu };
-enum class Pool { kAvg, kMax };
+enum Mode { kLeakyStore = 0, kLeakyAvgPool = 1, kReluStore = 2, kReluMaxPool = 3 };
 
-constexpr int kMaxThreads = 256;
-constexpr int FG = 8;  // output channels per thread
+constexpr int TH = 16;  // output tile rows    (ops/cuda/conv_gemm.py TILE)
+constexpr int TW = 16;  // output tile columns (one m16 MMA tile per row)
+constexpr int kWarps = 8;  // a warp: 2 tile rows x all BN channels of the block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kStages = 3;
 
-template <Act A>
-__device__ __forceinline__ float act(float v) {
-  if constexpr (A == Act::kLeaky) {
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// wgmma.mma_async m64nNk8 tf32: A (64 x 8) from registers, B (N x 8, K-major)
+// from shared memory through a descriptor; d += A * B^T.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<16>(float (&d)[8], const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16], const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+}
+
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// B's shared-memory descriptor: no swizzle, K-major core matrices of 8 rows
+// (n) x 16 bytes (4 k); the two k-halves of a core pair 128 B apart (leading
+// byte offset), consecutive n8 groups 256 B apart (stride byte offset).
+constexpr int kLeadBytes = 128;
+constexpr int kStrideBytes = 256;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint64_t b_desc(const float* p) {
+  const uint64_t addr = smem_addr(p);
+  return ((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(kLeadBytes >> 4) << 16) |
+         (static_cast<uint64_t>(kStrideBytes >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// 4-byte copy; src_bytes 0 writes a zero (SAME padding)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <Mode M>
+__device__ __forceinline__ float activate(float v) {
+  if constexpr (M == kLeakyStore || M == kLeakyAvgPool) {
     return v > 0.0f ? v : v * 0.1f;
   } else {
     return fmaxf(v, 0.0f);
   }
 }
 
-__device__ __forceinline__ void load_fg(const float* __restrict__ p, float w[FG]) {
-#pragma unroll
-  for (int q = 0; q < FG / 4; ++q) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p) + q);
-    w[4 * q] = v.x;
-    w[4 * q + 1] = v.y;
-    w[4 * q + 2] = v.z;
-    w[4 * q + 3] = v.w;
-  }
+// The staged input tile's channel stride: IH * IW plus KS + 7 floats, which
+// spreads the 4 k-columns of an A fragment load over distinct banks (checked
+// for every layer by tests/test_torch_conv_gemm.py).
+template <int KS>
+__host__ __device__ constexpr int channel_stride() {
+  return (TH + KS - 1) * (TW + KS - 1) + KS + 7;
 }
 
-// x: [B, C, H, W]; w1t: [C][K][K][F]; w2t: [F][K][K][F]; b1, b2: [F]
-// act_out: [B, F, H, W]; pooled: [B, F, PH, PW]
-template <int K, int T, Act A, Pool P>
-__global__ void __launch_bounds__(kMaxThreads)
-conv2_pool_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
-                  const float* __restrict__ b1, const float* __restrict__ w2t,
-                  const float* __restrict__ b2, float* __restrict__ act_out,
-                  float* __restrict__ pooled, int C, int F, int H, int W,
-                  int PH, int PW, int tiles_x) {
-  constexpr int R = (K - 1) / 2;
-  constexpr int IN = T + 4 * R;   // staged input extent
-  constexpr int MID = T + 2 * R;  // conv1 extent (tile + conv2 halo)
-  static_assert(T % 2 == 0, "the pool pairs rows and columns inside a tile");
-  extern __shared__ float smem[];
-  float* in_s = smem;                 // [C][IN][IN]
-  float* mid_s = smem + C * IN * IN;  // [F][MID][MID]
+// Shared-memory plan of one launch (floats): kStages (or fewer, when the
+// layer has fewer chunks) stages of [weights hi/lo | input tile | zero rows],
+// then the k -> offset table.
+struct Plan {
+  int w_floats;      // kc_pad * BN * 2
+  int in_floats;     // cc * channel_stride
+  int zero_floats;   // TH * IW when the chunk's K is padded, else 0
+  int stage_floats;  // w_floats + in_floats + zero_floats, rounded up to 4
+  int stages;
+  size_t smem_bytes;
+};
 
-  const int b = blockIdx.y;
-  const int ty0 = (blockIdx.x / tiles_x) * T;
-  const int tx0 = (blockIdx.x % tiles_x) * T;
-  const int n_fg = F / FG;
+template <int KS, int BN>
+__host__ __device__ inline Plan make_plan(int C, int cc, int kc_pad) {
+  constexpr int IW = TW + KS - 1;
+  Plan p;
+  p.w_floats = kc_pad * BN * 2;
+  p.in_floats = cc * channel_stride<KS>();
+  p.zero_floats = cc * KS * KS < kc_pad ? TH * IW : 0;
+  p.stage_floats = p.w_floats + ((p.in_floats + p.zero_floats + 3) & ~3);
+  const int chunks = C / cc;
+  p.stages = chunks < kStages ? chunks : kStages;
+  p.smem_bytes = sizeof(float) * (static_cast<size_t>(p.stages) * p.stage_floats + kc_pad);
+  return p;
+}
 
-  // 1. input tile + 2R halo, zero outside the image (SAME padding of conv1)
+// x: [B, C, H, W]; wpk: [F/BN][C/cc][kc_pad/8][hi, lo][BN/8][2][8][4], the core
+// matrices of ops/cuda/conv_gemm.py pack_weights; bias: [F]; out: [B, F, H, W];
+// pooled: [B, F, PH, PW] (pooling modes only)
+template <int KS, int BN, Mode M>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_gemm_kernel(const float* __restrict__ x, const float4* __restrict__ wpk,
+                 const float* __restrict__ bias, float* __restrict__ out,
+                 float* __restrict__ pooled, int C, int F, int H, int W, int PH, int PW, int cc,
+                 int kc_pad, int tiles_x) {
+  constexpr int R = KS / 2;
+  constexpr int IH = TH + KS - 1, IW = TW + KS - 1, CS = channel_stride<KS>();
+  constexpr int MT = TH / kWarps;  // tile rows (m16 tiles) of a warp
+  constexpr int NT = BN / 8;       // n8 tiles of a warp
+  // register sets of A fragments for the wgmma path: more k-steps in flight
+  // where each wgmma is shorter
+  constexpr int kSets = BN == 32 ? 3 : 2;
+  constexpr bool kPool = M == kLeakyAvgPool || M == kReluMaxPool;
+  static_assert(MT % 2 == 0, "a pool window's two rows must sit in one warp");
+
+  extern __shared__ __align__(16) float smem[];
+  const Plan plan = make_plan<KS, BN>(C, cc, kc_pad);
+  const int chunks = C / cc;
+  const int ksteps = kc_pad / 8;
+  const int kvalid = cc * KS * KS;
+  int* koff = reinterpret_cast<int*>(smem + plan.stages * plan.stage_floats);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z, nblk = blockIdx.y;
+  const int ty0 = (blockIdx.x / tiles_x) * TH, tx0 = (blockIdx.x % tiles_x) * TW;
+
+  // im2col in shared memory: chunk-local k = (c, kh, kw) -> offset of tap
+  // (0, 0)'s input in the staged tile; the padded k read the zero rows
+  for (int k = tid; k < kc_pad; k += kThreads) {
+    int off = plan.in_floats;
+    if (k < kvalid) {
+      const int c = k / (KS * KS), r = k % (KS * KS);
+      off = c * CS + (r / KS) * IW + r % KS;
+    }
+    koff[k] = off;
+  }
+  for (int s = 0; s < plan.stages; ++s) {
+    float* z = smem + s * plan.stage_floats + plan.w_floats + plan.in_floats;
+    for (int i = tid; i < plan.zero_floats; i += kThreads) z[i] = 0.0f;
+  }
+
   const float* xb = x + static_cast<long long>(b) * C * H * W;
-  for (int i = threadIdx.x; i < C * IN * IN; i += blockDim.x) {
-    const int c = i / (IN * IN);
-    const int r = i % (IN * IN);
-    const int gy = ty0 - 2 * R + r / IN;
-    const int gx = tx0 - 2 * R + r % IN;
-    float v = 0.0f;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      v = xb[(static_cast<long long>(c) * H + gy) * W + gx];
-    }
-    in_s[i] = v;
-  }
-  __syncthreads();
+  const float4* wb = wpk + static_cast<long long>(nblk) * chunks * (plan.w_floats / 4);
 
-  // 2. conv1 over the tile + R halo, all F channels, into shared memory
-  constexpr int PAIRS = MID * MID / 2;  // MID is even: T even, 2R even
-  for (int item = threadIdx.x; item < n_fg * PAIRS; item += blockDim.x) {
-    const int fg = item / PAIRS;
-    const int pr = item % PAIRS;
-    const int my = pr / (MID / 2);
-    const int mx = 2 * (pr % (MID / 2));
-    float acc0[FG], acc1[FG];
-#pragma unroll
-    for (int j = 0; j < FG; ++j) {
-      acc0[j] = __ldg(b1 + fg * FG + j);
-      acc1[j] = acc0[j];
+  auto load_chunk = [&](int j) {
+    float* st = smem + (j % kStages) * plan.stage_floats;
+    const float4* wsrc = wb + static_cast<long long>(j) * (plan.w_floats / 4);
+    float4* wdst = reinterpret_cast<float4*>(st);
+    for (int i = tid; i < plan.w_floats / 4; i += kThreads) cp_async16(wdst + i, wsrc + i);
+    float* in = st + plan.w_floats;
+    const float* xc = xb + static_cast<long long>(j) * cc * H * W;
+    for (int i = tid; i < cc * IH * IW; i += kThreads) {
+      const int c = i / (IH * IW), r = i % (IH * IW);
+      const int gy = ty0 - R + r / IW, gx = tx0 - R + r % IW;
+      const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      cp_async4(in + c * CS + r, ok ? xc + (static_cast<long long>(c) * H + gy) * W + gx : xc,
+                ok);
     }
-    for (int c = 0; c < C; ++c) {
-      const float* src = in_s + (c * IN + my) * IN + mx;
-      const float* wc = w1t + static_cast<long long>(c) * K * K * F + fg * FG;
+  };
+
+  int moff[MT];  // staged-tile offset of this lane's A row g, per tile row
 #pragma unroll
-      for (int kh = 0; kh < K; ++kh) {
-        float row[K + 1];
+  for (int mt = 0; mt < MT; ++mt) moff[mt] = (warp * MT + mt) * IW + g;
+
+  // acc[mt][4 * nt + i]: the wgmma accumulator of the m64 tile whose rows are
+  // tile row (warp % 4) * 2 + mt of each of the warpgroup's 4 warps
+  float acc[MT][BN / 2];
 #pragma unroll
-        for (int i = 0; i <= K; ++i) row[i] = src[kh * IN + i];
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int kw = 0; kw < K; ++kw) {
-          float w[FG];
-          load_fg(wc + (kh * K + kw) * F, w);
+    for (int i = 0; i < BN / 2; ++i) acc[mt][i] = 0.0f;
+
+  // A fragments of k-step ks: 4 loads and 4 splits a tile row
+  auto load_a = [&](const float* in, int ks, uint32_t (&ah)[MT][4], uint32_t (&al)[MT][4]) {
+    const int k0 = koff[ks * 8 + t], k1 = koff[ks * 8 + t + 4];
 #pragma unroll
-          for (int j = 0; j < FG; ++j) {
-            acc0[j] = fmaf(row[kw], w[j], acc0[j]);
-            acc1[j] = fmaf(row[kw + 1], w[j], acc1[j]);
+    for (int mt = 0; mt < MT; ++mt) {
+      split_tf32(in[moff[mt] + k0], ah[mt][0], al[mt][0]);      // (row g,     k t)
+      split_tf32(in[moff[mt] + 8 + k0], ah[mt][1], al[mt][1]);  // (row g + 8, k t)
+      split_tf32(in[moff[mt] + k1], ah[mt][2], al[mt][2]);      // (row g,     k t + 4)
+      split_tf32(in[moff[mt] + 8 + k1], ah[mt][3], al[mt][3]);  // (row g + 8, k t + 4)
+    }
+  };
+  // wgmma path, one k-step: the warpgroup's 3 MMAs a tile row, al*bh + ah*bl
+  // + ah*bh, committed as one group
+  auto step = [&](const float* in, const float* wst, int ks, uint32_t (&ah)[MT][4],
+                  uint32_t (&al)[MT][4]) {
+    load_a(in, ks, ah, al);
+    const uint64_t bh = b_desc(wst + (2 * ks) * BN * 8);
+    const uint64_t bl = b_desc(wst + (2 * ks + 1) * BN * 8);
+    wgmma_fence();
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      wgmma_tf32<BN>(acc[mt], al[mt], bh);
+      wgmma_tf32<BN>(acc[mt], ah[mt], bl);
+      wgmma_tf32<BN>(acc[mt], ah[mt], bh);
+    }
+    wgmma_commit();
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < chunks) load_chunk(s);
+    cp_async_commit();
+  }
+  for (int j = 0; j < chunks; ++j) {
+    cp_async_wait<kStages - 2>();  // chunk j has landed (this thread's copies)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // ... for wgmma's reads
+    __syncthreads();               // ... everyone's; stage (j - 1) % 3 is free
+    if (j + kStages - 1 < chunks) load_chunk(j + kStages - 1);
+    cp_async_commit();
+
+    const float* wst = smem + (j % kStages) * plan.stage_floats;
+    const float* in = wst + plan.w_floats;
+    if constexpr (BN == 16) {
+      // mma.sync path: b0 = B[k t][n g], b1 = B[k t + 4][n g] of n8 tile nt
+      // are floats 64 nt + lane and 64 nt + 32 + lane of a (k-step, plane)
+      // block of the core-matrix layout
+#pragma unroll 2
+      for (int ks = 0; ks < ksteps; ++ks) {
+        uint32_t ah[MT][4], al[MT][4];
+        load_a(in, ks, ah, al);
+        const float* bh = wst + (2 * ks) * BN * 8 + lane;
+        const float* bl = bh + BN * 8;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const uint32_t h0 = __float_as_uint(bh[64 * nt]), h1 = __float_as_uint(bh[64 * nt + 32]);
+          const uint32_t l0 = __float_as_uint(bl[64 * nt]), l1 = __float_as_uint(bl[64 * nt + 32]);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_tf32(&acc[mt][4 * nt], al[mt], h0, h1);
+            mma_tf32(&acc[mt][4 * nt], ah[mt], l0, l1);
+            mma_tf32(&acc[mt][4 * nt], ah[mt], h0, h1);
           }
         }
       }
-    }
-    const int gy = ty0 - R + my;
-    const int gx = tx0 - R + mx;
-    const bool row_in = gy >= 0 && gy < H;
-    const bool in0 = row_in && gx >= 0 && gx < W;
-    const bool in1 = row_in && gx + 1 >= 0 && gx + 1 < W;
+    } else {
+      // kSets register sets: the loads of the next k-steps overlap the MMAs of
+      // the kSets - 1 k-steps in flight
+      uint32_t ah[kSets][MT][4], al[kSets][MT][4];
+      for (int ks = 0; ks < ksteps; ks += kSets) {
 #pragma unroll
-    for (int j = 0; j < FG; ++j) {
-      float* dst = mid_s + ((fg * FG + j) * MID + my) * MID + mx;
-      dst[0] = in0 ? act<A>(acc0[j]) : 0.0f;
-      dst[1] = in1 ? act<A>(acc1[j]) : 0.0f;
-    }
-  }
-  __syncthreads();
-
-  // 3. conv2 on 2x2 quads, activation, skip write and the full 2x2 pool
-  constexpr int QUADS = (T / 2) * (T / 2);
-  float* act_b = act_out + static_cast<long long>(b) * F * H * W;
-  float* pool_b = pooled + static_cast<long long>(b) * F * PH * PW;
-  for (int item = threadIdx.x; item < n_fg * QUADS; item += blockDim.x) {
-    const int fg = item / QUADS;
-    const int q = item % QUADS;
-    const int oy = 2 * (q / (T / 2));
-    const int ox = 2 * (q % (T / 2));
-    float acc[4][FG];
-#pragma unroll
-    for (int j = 0; j < FG; ++j) {
-      acc[0][j] = __ldg(b2 + fg * FG + j);
-      acc[1][j] = acc[0][j];
-      acc[2][j] = acc[0][j];
-      acc[3][j] = acc[0][j];
-    }
-    for (int c = 0; c < F; ++c) {
-      const float* src = mid_s + (c * MID + oy) * MID + ox;
-      const float* wc = w2t + static_cast<long long>(c) * K * K * F + fg * FG;
-#pragma unroll
-      for (int kh = 0; kh < K; ++kh) {
-        float top[K + 1], bot[K + 1];
-#pragma unroll
-        for (int i = 0; i <= K; ++i) {
-          top[i] = src[kh * MID + i];
-          bot[i] = src[(kh + 1) * MID + i];
-        }
-#pragma unroll
-        for (int kw = 0; kw < K; ++kw) {
-          float w[FG];
-          load_fg(wc + (kh * K + kw) * F, w);
-#pragma unroll
-          for (int j = 0; j < FG; ++j) {
-            acc[0][j] = fmaf(top[kw], w[j], acc[0][j]);
-            acc[1][j] = fmaf(top[kw + 1], w[j], acc[1][j]);
-            acc[2][j] = fmaf(bot[kw], w[j], acc[2][j]);
-            acc[3][j] = fmaf(bot[kw + 1], w[j], acc[3][j]);
+        for (int u = 0; u < kSets; ++u) {
+          if (ks + u < ksteps) {
+            step(in, wst, ks + u, ah[u], al[u]);
+            wgmma_wait<kSets - 1>();  // k-step ks + u - kSets + 1 is done: its set is free
           }
         }
       }
+      wgmma_wait<0>();  // this stage is read to the end before it is refilled
     }
-    const int gy = ty0 + oy;
-    const int gx = tx0 + ox;
-    const bool ok[4] = {gy < H && gx < W, gy < H && gx + 1 < W,
-                        gy + 1 < H && gx < W, gy + 1 < H && gx + 1 < W};
-    const int py = gy / 2;
-    const int px = gx / 2;
+  }
+  cp_async_wait<0>();
+
+  // epilogue: acc[mt][4 * nt + i] is pixel (row warp*MT + mt, column
+  // g + 8*(i >> 1)), channel 8 nt + 2t + (i & 1) of the block
+  const int n0 = nblk * BN;
+  float bv[NT][2];
 #pragma unroll
-    for (int j = 0; j < FG; ++j) {
-      const int f = fg * FG + j;
-      float v[4];
+  for (int nt = 0; nt < NT; ++nt) {
+    bv[nt][0] = __ldg(bias + n0 + nt * 8 + 2 * t);
+    bv[nt][1] = __ldg(bias + n0 + nt * 8 + 2 * t + 1);
+  }
+  float* ob = out + static_cast<long long>(b) * F * H * W;
 #pragma unroll
-      for (int u = 0; u < 4; ++u) v[u] = act<A>(acc[u][j]);
-      float* dst = act_b + (static_cast<long long>(f) * H + gy) * W + gx;
-      if (ok[0]) dst[0] = v[0];
-      if (ok[1]) dst[1] = v[1];
-      if (ok[2]) dst[W] = v[2];
-      if (ok[3]) dst[W + 1] = v[3];
-      if (py < PH && px < PW) {
-        float pv;
-        if constexpr (P == Pool::kAvg) {
-          // VALID pool: (py, px) < (H/2, W/2) means all four are inside
-          pv = ((v[0] + v[1]) + (v[2] + v[3])) * 0.25f;
-        } else {
-          // SAME pool: max over the in-image members (ok[0] always holds)
-          pv = v[0];
-          if (ok[1]) pv = fmaxf(pv, v[1]);
-          if (ok[2]) pv = fmaxf(pv, v[2]);
-          if (ok[3]) pv = fmaxf(pv, v[3]);
+  for (int mt = 0; mt < MT; ++mt) {
+    const int y = ty0 + warp * MT + mt;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int xx = tx0 + g + 8 * (i >> 1);
+        const int n = n0 + nt * 8 + 2 * t + (i & 1);
+        const float v = activate<M>(acc[mt][4 * nt + i] + bv[nt][i & 1]);
+        acc[mt][4 * nt + i] = v;
+        if (y < H && xx < W) ob[(static_cast<long long>(n) * H + y) * W + xx] = v;
+      }
+    }
+  }
+  if constexpr (kPool) {
+    float* pb = pooled + static_cast<long long>(b) * F * PH * PW;
+#pragma unroll
+    for (int mt = 0; mt < MT; mt += 2) {
+      const int y = ty0 + warp * MT + mt;  // even: the window's top row
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int xx = tx0 + g + 8 * (i >> 1);
+          float top = acc[mt][4 * nt + i], bot = acc[mt + 1][4 * nt + i], v;
+          if constexpr (M == kReluMaxPool) {
+            // SAME pool: max over the in-image members only
+            if (!(y < H && xx < W)) top = __int_as_float(0xff800000);  // -inf
+            if (!(y + 1 < H && xx < W)) bot = __int_as_float(0xff800000);
+            v = fmaxf(top, bot);
+            v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));  // column pair: lane g ^ 1
+          } else {
+            // VALID pool: a written window lies inside the image
+            v = top + bot;
+            v = (v + __shfl_xor_sync(0xffffffffu, v, 4)) * 0.25f;
+          }
+          const int py = y / 2, px = xx / 2;
+          if (!(g & 1) && py < PH && px < PW) {
+            const int n = n0 + nt * 8 + 2 * t + (i & 1);
+            pb[(static_cast<long long>(n) * PH + py) * PW + px] = v;
+          }
         }
-        pool_b[(static_cast<long long>(f) * PH + py) * PW + px] = pv;
       }
     }
   }
 }
 
-constexpr size_t smem_bytes(int K, int T, int C, int F) {
-  return sizeof(float) * (static_cast<size_t>(C) * (T + 2 * (K - 1)) * (T + 2 * (K - 1)) +
-                          static_cast<size_t>(F) * (T + K - 1) * (T + K - 1));
-}
-
-template <int K, int T, Act A, Pool P>
-int launch_tile(const float* x, const float* w1t, const float* b1, const float* w2t,
-                const float* b2, float* act_out, float* pooled, int B, int C, int F,
-                int H, int W, int PH, int PW, cudaStream_t stream) {
-  if (F % FG != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(K, T, C, F);
-  if (smem > static_cast<size_t>(kMaxSmemBytes)) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = conv2_pool_kernel<K, T, A, P>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem));
-  const int tiles_x = shdr_ceil_div(W, T);
-  const int tiles_y = shdr_ceil_div(H, T);
-  const int items = (F / FG) * (T / 2) * (T / 2);
-  const int threads = items < 64 ? 64 : (items > kMaxThreads ? kMaxThreads : items);
-  dim3 grid(tiles_x * tiles_y, B);
-  kernel<<<grid, threads, smem, stream>>>(x, w1t, b1, w2t, b2, act_out, pooled, C, F, H,
-                                          W, PH, PW, tiles_x);
+template <int KS, int BN, Mode M>
+int launch(const float* x, const float* wpk, const float* bias, float* out, float* pooled, int B,
+           int C, int F, int H, int W, int cc, int kc_pad, cudaStream_t stream) {
+  const Plan plan = make_plan<KS, BN>(C, cc, kc_pad);
+  if (plan.smem_bytes > static_cast<size_t>(kMaxSmemBytes)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = conv_gemm_kernel<KS, BN, M>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(plan.smem_bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int PH = 0, PW = 0;
+  if (M == kLeakyAvgPool) {
+    PH = H / 2;
+    PW = W / 2;
+  } else if (M == kReluMaxPool) {
+    PH = (H + 1) / 2;
+    PW = (W + 1) / 2;
+  }
+  const int tiles_x = shdr_ceil_div(W, TW);
+  const dim3 grid(tiles_x * shdr_ceil_div(H, TH), F / BN, B);
+  kernel<<<grid, kThreads, plan.smem_bytes, stream>>>(
+      x, reinterpret_cast<const float4*>(wpk), bias, out, pooled, C, F, H, W, PH, PW, cc, kc_pad,
+      tiles_x);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tile: 16 x 16 when its shared memory stays near 100 KB (two blocks an
-// SM), else 8 x 8; a stage that does not fit even 8 x 8 is refused.
-template <int K, Act A, Pool P>
-int launch_k(const float* x, const float* w1t, const float* b1, const float* w2t,
-             const float* b2, float* act_out, float* pooled, int B, int C, int F,
-             int H, int W, int PH, int PW, cudaStream_t stream) {
-  if (smem_bytes(K, 16, C, F) <= 100 * 1024) {
-    return launch_tile<K, 16, A, P>(x, w1t, b1, w2t, b2, act_out, pooled, B, C, F, H, W,
-                                    PH, PW, stream);
-  }
-  return launch_tile<K, 8, A, P>(x, w1t, b1, w2t, b2, act_out, pooled, B, C, F, H, W,
-                                 PH, PW, stream);
-}
-
-template <Act A, Pool P>
-int launch(int K, const float* x, const float* w1t, const float* b1, const float* w2t,
-           const float* b2, float* act_out, float* pooled, int B, int C, int F, int H,
-           int W, int PH, int PW, cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || W <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  switch (K) {
-    case 3:
-      return launch_k<3, A, P>(x, w1t, b1, w2t, b2, act_out, pooled, B, C, F, H, W, PH,
-                               PW, stream);
-    case 5:
-      return launch_k<5, A, P>(x, w1t, b1, w2t, b2, act_out, pooled, B, C, F, H, W, PH,
-                               PW, stream);
-    case 7:
-      return launch_k<7, A, P>(x, w1t, b1, w2t, b2, act_out, pooled, B, C, F, H, W, PH,
-                               PW, stream);
+template <int KS, Mode M>
+int launch_bn(int bn, const float* x, const float* wpk, const float* bias, float* out,
+              float* pooled, int B, int C, int F, int H, int W, int cc, int kc_pad,
+              cudaStream_t stream) {
+  switch (bn) {
+    case 16:
+      return launch<KS, 16, M>(x, wpk, bias, out, pooled, B, C, F, H, W, cc, kc_pad, stream);
+    case 32:
+      return launch<KS, 32, M>(x, wpk, bias, out, pooled, B, C, F, H, W, cc, kc_pad, stream);
+    case 64:
+      return launch<KS, 64, M>(x, wpk, bias, out, pooled, B, C, F, H, W, cc, kc_pad, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-}  // namespace
-
-// K2: leaky-ReLU(0.1) convs + 2x2 average pool (VALID: PH = H/2, PW = W/2).
-SHDR_API int shdr_unet_stage2_f32(int K, const float* x, const float* w1t,
-                                  const float* b1, const float* w2t, const float* b2,
-                                  float* act_out, float* pooled, int B, int C, int F,
-                                  int H, int W, void* stream) {
-  return launch<Act::kLeaky, Pool::kAvg>(K, x, w1t, b1, w2t, b2, act_out, pooled, B, C,
-                                         F, H, W, H / 2, W / 2,
-                                         static_cast<cudaStream_t>(stream));
+template <Mode M>
+int launch_ks(int ks, int bn, const float* x, const float* wpk, const float* bias, float* out,
+              float* pooled, int B, int C, int F, int H, int W, int cc, int kc_pad,
+              cudaStream_t stream) {
+  switch (ks) {
+    case 3:
+      return launch_bn<3, M>(bn, x, wpk, bias, out, pooled, B, C, F, H, W, cc, kc_pad, stream);
+    case 5:
+      if constexpr (M == kLeakyStore || M == kLeakyAvgPool) {
+        return launch_bn<5, M>(bn, x, wpk, bias, out, pooled, B, C, F, H, W, cc, kc_pad, stream);
+      }
+      break;
+    case 7:
+      if constexpr (M == kLeakyStore || M == kLeakyAvgPool) {
+        return launch_bn<7, M>(bn, x, wpk, bias, out, pooled, B, C, F, H, W, cc, kc_pad, stream);
+      }
+      break;
+    default:
+      break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K4: ReLU 3x3 convs + 2x2 max pool (SAME: PH = ceil(H/2), PW = ceil(W/2)).
-SHDR_API int shdr_encoder_stage2_f32(const float* x, const float* w1t, const float* b1,
-                                     const float* w2t, const float* b2, float* act_out,
-                                     float* pooled, int B, int C, int F, int H, int W,
-                                     void* stream) {
-  return launch<Act::kRelu, Pool::kMax>(3, x, w1t, b1, w2t, b2, act_out, pooled, B, C, F,
-                                        H, W, (H + 1) / 2, (W + 1) / 2,
-                                        static_cast<cudaStream_t>(stream));
+}  // namespace
+
+// One SAME conv of a K2/K4 stage.  mode: 0 leaky store, 1 leaky + 2x2 avg pool
+// (VALID), 2 ReLU store, 3 ReLU + 2x2 max pool (SAME); ReLU modes take ks = 3.
+// The packing (bn, cc, kc_pad) is the wrapper's (ops/cuda/conv_gemm.py).
+SHDR_API int shdr_conv_gemm_f32(int ks, int mode, const float* x, const float* wpk,
+                                const float* bias, float* out, float* pooled, int B, int C, int F,
+                                int H, int W, int bn, int cc, int kc_pad, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || cc <= 0 || C % cc != 0 || F % bn != 0 || kc_pad % 8 != 0 ||
+      kc_pad < cc * ks * ks || kc_pad >= cc * ks * ks + 8 || B > 65535 || F / bn > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kLeakyStore:
+      return launch_ks<kLeakyStore>(ks, bn, x, wpk, bias, out, pooled, B, C, F, H, W, cc, kc_pad, s);
+    case kLeakyAvgPool:
+      return launch_ks<kLeakyAvgPool>(ks, bn, x, wpk, bias, out, pooled, B, C, F, H, W, cc, kc_pad,
+                                      s);
+    case kReluStore:
+      return launch_ks<kReluStore>(ks, bn, x, wpk, bias, out, pooled, B, C, F, H, W, cc, kc_pad, s);
+    case kReluMaxPool:
+      return launch_ks<kReluMaxPool>(ks, bn, x, wpk, bias, out, pooled, B, C, F, H, W, cc, kc_pad,
+                                     s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from singlehdr_tpu.calib import load_inverse_emor
+from singlehdr_tpu_torch.calib import load_inverse_emor
 from singlehdr_tpu_torch.models.layers import BatchNorm, Conv2d, Dense
 from singlehdr_tpu_torch.ops.cuda.lin_stem_cuda import lin_feature_stem
 from singlehdr_tpu_torch.ops.curves import decode_invcrf, monotonic_rf

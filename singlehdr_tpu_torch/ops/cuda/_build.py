@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-All sources under ``singlehdr_tpu_torch/csrc`` compile with one ``nvcc`` call
-into one shared library with a plain C interface, loaded with ``ctypes``.
+Each source under ``singlehdr_tpu_torch/csrc`` compiles in its own ``nvcc``
+process, all started together, and the objects link into one shared library
+with a plain C interface, loaded with ``ctypes``.
 (``torch.utils.cpp_extension.load`` would include PyTorch's headers, which
 takes minutes to compile; this takes seconds.)  The library is keyed by a
 hash of the sources and flags and lands in ``build/kernels/`` at the root of
@@ -25,8 +26,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -35,8 +35,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "shdr_apply_rf_f32": (_P, _P, _P, _I, ctypes.c_longlong, _I, _P),
     "shdr_apply_rf_bwd_f32": (_P, _P, _P, _P, _P, _I, ctypes.c_longlong, _I, _P),
-    "shdr_unet_stage2_f32": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "shdr_encoder_stage2_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "shdr_conv_gemm_f32": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "shdr_lin_stem_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
@@ -75,19 +74,29 @@ def build() -> Path:
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    build_seconds = time.perf_counter() - t0
-    os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, cu.stem + ".o") for cu in sorted(CSRC.glob("*.cu"))]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj, str(cu)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+            for cu, obj in zip(sorted(CSRC.glob("*.cu")), objs)
+        ]
+        stderr = [p.communicate()[1] for p in procs]  # waits for every compile
+        failed = [f"{p.args[-1]} ({p.returncode}):\n{err}"
+                  for p, err in zip(procs, stderr) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        so = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        build_seconds = time.perf_counter() - t0
+        os.replace(so, path)  # atomic: a concurrent loader sees all or nothing
     return path
 
 

@@ -2,11 +2,10 @@
 
 Replaces ``singlehdr_tpu/ops/pallas/enc_pool_pallas.py`` (``encoder_stage2``),
 which ran hal's enc1 (3->64) and enc2 (64->128) with the conv1 activation
-kept in VMEM.  It is the same CUDA template as K2 (``csrc/conv2_pool.cu``)
-with ReLU and a SAME max pool: one block per output tile and all F channels,
-conv1 in shared memory, the skip and the complete pool written once.  The
-tile is picked from F so both shared-memory buffers fit: 16 x 16 for enc1,
-8 x 8 for enc2.  FMA-bound in f32.
+kept in VMEM.  It is the same kernel as K2 (``csrc/conv2_pool.cu``: an
+implicit GEMM conv on the tensor cores in 3xTF32, two launches a stage) with
+ReLU and a SAME max pool over the in-image members, written from registers.
+enc2's 128 channels run as two 64-channel blocks per tile.
 
 Layout: NCHW activations, OIHW weights.
 """
@@ -16,9 +15,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from singlehdr_tpu_torch.ops.cuda import _build
-from singlehdr_tpu_torch.ops.cuda._check import count_launch, ptr, require, stream
-from singlehdr_tpu_torch.ops.cuda.unet_stage_cuda import check_stage, pack_weights
+from singlehdr_tpu_torch.ops.cuda import conv_gemm
+from singlehdr_tpu_torch.ops.cuda._check import count_launch, require
+from singlehdr_tpu_torch.ops.cuda.unet_stage_cuda import check_stage
 
 
 def encoder_stage2_plain(x, w1, b1, w2, b2):
@@ -39,16 +38,14 @@ def encoder_stage2(x, w1, b1, w2, b2):
         return encoder_stage2_plain(x, w1, b1, w2, b2)
     require(x.device.type == "cuda", f"encoder_stage2: no kernel for device {x.device}")
     B, C, H, W, Fo, _ = check_stage("encoder_stage2", x, w1, b1, w2, b2, (3,))
-    skip = torch.empty((B, Fo, H, W), dtype=x.dtype, device=x.device)
+    mid = torch.empty((B, Fo, H, W), dtype=x.dtype, device=x.device)
+    skip = torch.empty_like(mid)
     pooled = torch.empty(
         (B, Fo, (H + 1) // 2, (W + 1) // 2), dtype=x.dtype, device=x.device
     )
-    w1t, w2t = pack_weights(w1), pack_weights(w2)
     with torch.cuda.device(x.device):
-        _build.call(
-            "shdr_encoder_stage2_f32", ptr(x), ptr(w1t), ptr(b1), ptr(w2t), ptr(b2),
-            ptr(skip), ptr(pooled), B, C, Fo, H, W, stream(x.device),
-        )
+        conv_gemm.conv_gemm(x, w1, b1, mid, None, conv_gemm.RELU_STORE)
+        conv_gemm.conv_gemm(mid, w2, b2, skip, pooled, conv_gemm.RELU_MAX_POOL)
     count_launch(encoder_stage2)
     return pooled, skip
 

@@ -2,13 +2,13 @@
 
 Replaces ``singlehdr_tpu/ops/pallas/unet_stage_pallas.py`` (``unet_stage2``),
 which ran the deq/ref encoder prefix (stem pair, down2, down3) with the conv1
-activation kept in VMEM.  ``csrc/conv2_pool.cu`` does the same in shared
-memory: one block per T x T output tile and all F channels; conv1 over the
-tile plus its halo, conv2 from shared memory, then the skip and the complete
-2x2 pool (the TPU kernel left the W half of the pool to XLA).  On this card
-the stage is FMA-bound in f32; a thread holds a 2x2 quad x 8 channels so each
-shared-memory read feeds 8 FMAs.  The TPU's lane-alignment gates (W % 128)
-do not apply: any H, W runs, including the 576^2 serving shape.
+activation kept in VMEM.  On the card a stage is two launches of one implicit
+GEMM conv on the tensor cores in 3xTF32 (``csrc/conv2_pool.cu``, launched
+through ``conv_gemm``): conv1 stores its activation, conv2 stores the skip
+and the complete 2x2 pool from registers.  The bound is the convs' f32-accurate
+multiply-adds (165 TFLOP/s in 3xTF32); conv1's activation costs a write and a
+read of HBM, which is small beside them.  The TPU's lane-alignment gates
+(W % 128) do not apply: any H, W runs, including the 576^2 serving shape.
 
 Layout: NCHW activations, OIHW weights (the port's own), as the JAX function
 under ``nchw_in=True`` returns.
@@ -19,19 +19,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from singlehdr_tpu_torch.ops.cuda import _build
-from singlehdr_tpu_torch.ops.cuda._check import (
-    count_launch,
-    cuda_f32,
-    no_grad_needed,
-    ptr,
-    require,
-    stream,
-)
+from singlehdr_tpu_torch.ops.cuda import conv_gemm
+from singlehdr_tpu_torch.ops.cuda._check import count_launch, cuda_f32, no_grad_needed, require
 
 LEAKY_SLOPE = 0.1
 KERNEL_SIZES = (3, 5, 7)
-_FG = 8  # output channels a thread computes (csrc/conv2_pool.cu)
 
 
 def unet_stage2_plain(x, w1, b1, w2, b2):
@@ -55,15 +47,12 @@ def check_stage(name, x, w1, b1, w2, b2, kernel_sizes):
     require(tuple(w1.shape) == (Fo, C, K, K), f"{name}: w1 {tuple(w1.shape)} != {(Fo, C, K, K)}")
     require(tuple(w2.shape) == (Fo, Fo, K, K), f"{name}: w2 {tuple(w2.shape)} != {(Fo, Fo, K, K)}")
     require(b1.shape == (Fo,) and b2.shape == (Fo,), f"{name}: biases must be [{Fo}]")
-    require(Fo % _FG == 0, f"{name}: output channels {Fo} not a multiple of {_FG}")
+    for cin in (C, Fo):
+        why = conv_gemm.supported(cin, Fo, K)
+        require(why is None, f"{name}: {why}")
     require(H > 0 and W > 0 and B > 0, f"{name}: empty input {tuple(x.shape)}")
     no_grad_needed(name, x, w1, b1, w2, b2)
     return B, C, H, W, Fo, K
-
-
-def pack_weights(w: torch.Tensor) -> torch.Tensor:
-    """OIHW -> [I][K][K][O]: a thread's 8 output channels are contiguous."""
-    return w.permute(1, 2, 3, 0).contiguous()
 
 
 def unet_stage2(x, w1, b1, w2, b2):
@@ -76,14 +65,12 @@ def unet_stage2(x, w1, b1, w2, b2):
         return unet_stage2_plain(x, w1, b1, w2, b2)
     require(x.device.type == "cuda", f"unet_stage2: no kernel for device {x.device}")
     B, C, H, W, Fo, K = check_stage("unet_stage2", x, w1, b1, w2, b2, KERNEL_SIZES)
-    act = torch.empty((B, Fo, H, W), dtype=x.dtype, device=x.device)
+    mid = torch.empty((B, Fo, H, W), dtype=x.dtype, device=x.device)
+    act = torch.empty_like(mid)
     pooled = torch.empty((B, Fo, H // 2, W // 2), dtype=x.dtype, device=x.device)
-    w1t, w2t = pack_weights(w1), pack_weights(w2)
     with torch.cuda.device(x.device):
-        _build.call(
-            "shdr_unet_stage2_f32", K, ptr(x), ptr(w1t), ptr(b1), ptr(w2t), ptr(b2),
-            ptr(act), ptr(pooled), B, C, Fo, H, W, stream(x.device),
-        )
+        conv_gemm.conv_gemm(x, w1, b1, mid, None, conv_gemm.LEAKY_STORE)
+        conv_gemm.conv_gemm(mid, w2, b2, act, pooled, conv_gemm.LEAKY_AVG_POOL)
     count_launch(unet_stage2)
     return pooled, act
 

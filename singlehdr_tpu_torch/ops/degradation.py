@@ -14,7 +14,7 @@ same fields:
   CRF        apply_rf(clipped, crf)               (K1)
   quantize   round(ldr * 255) as uint8
 
-The JPEG round trip runs on the host (``singlehdr_tpu.data.jpeg``).
+The JPEG round trip runs on the host (``singlehdr_tpu_torch.data.jpeg``).
 """
 
 from __future__ import annotations

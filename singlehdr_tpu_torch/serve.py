@@ -27,7 +27,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from singlehdr_tpu.data import hdr_io
+from singlehdr_tpu_torch.data import hdr_io
 
 try:
     import cv2

@@ -2,8 +2,8 @@
 ``singlehdr_tpu.train.loop``): data, degradation, steps, checkpoints and
 metrics for per-net pretraining and joint training.
 
-The host half of the feed is the JAX package's own numpy code (the
-``RandomSampleLoader`` over ``data.synth.get_train_dataset``, the
+The host half of the feed is the port's copy of the JAX package's numpy code
+(the ``RandomSampleLoader`` over ``data.synth.get_train_dataset``, the
 ``jpeg_roundtrip_batch`` codec).  Per batch, one packed buffer (crf, invcrf,
 t as float32, the HDR patch as float16, as in JAX) goes to the card in one
 copy from pinned memory; the capture simulation (K1 for the CRF) runs there.
@@ -22,8 +22,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from singlehdr_tpu.data.jpeg import jpeg_roundtrip_batch
-from singlehdr_tpu.data.loader import RandomSampleLoader
+from singlehdr_tpu_torch.data.jpeg import jpeg_roundtrip_batch
+from singlehdr_tpu_torch.data.loader import RandomSampleLoader
 from singlehdr_tpu_torch.ops.degradation import (
     jpeg_quality_ladder,
     loss_mask_from_levels,

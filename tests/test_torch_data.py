@@ -1,0 +1,104 @@
+"""The port's copies of the JAX package's numpy-only modules (``calib``,
+``data``, ``utils``) against the originals, on the same inputs: equal arrays,
+byte-equal files, the same file lists and the same batches."""
+
+import argparse
+import filecmp
+import os
+
+import numpy as np
+import pytest
+
+from singlehdr_tpu import calib as jcalib
+from singlehdr_tpu import utils as jutils
+from singlehdr_tpu.data import hdr_io as jhdr_io
+from singlehdr_tpu.data import jpeg as jjpeg
+from singlehdr_tpu.data import loader as jloader
+from singlehdr_tpu.data import synth as jsynth
+from singlehdr_tpu.data.datasets import ArrayDataset as JArrayDataset
+from singlehdr_tpu_torch import calib, utils
+from singlehdr_tpu_torch.data import hdr_io, jpeg, loader, synth
+from singlehdr_tpu_torch.data.datasets import ArrayDataset
+
+
+@pytest.mark.parametrize("which", ["load_emor", "load_inverse_emor"])
+def test_emor_arrays_equal(which):
+    got, want = getattr(calib, which)(), getattr(jcalib, which)()
+    for field in ("x", "mean", "basis"):
+        np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+
+
+def test_crf_bank_and_exposure_ladder_equal():
+    got, want = calib.get_crf_bank(), jcalib.get_crf_bank()
+    for field in ("train_crf", "train_invcrf", "test_crf", "test_invcrf"):
+        np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+    for n in (7, 600):
+        np.testing.assert_array_equal(calib.get_exposure_ladder(n), jcalib.get_exposure_ladder(n))
+
+
+def _radiance(rs, h, w):
+    return ((rs.rand(h, w, 3) * 4) ** 2).astype(np.float32)
+
+
+def test_write_hdr_byte_equal_and_read_hdr_equal(tmp_path):
+    rgb = _radiance(np.random.RandomState(1), 24, 40)
+    a, b = str(tmp_path / "port.hdr"), str(tmp_path / "jax.hdr")
+    hdr_io.write_hdr(a, rgb)
+    jhdr_io.write_hdr(b, rgb)
+    assert filecmp.cmp(a, b, shallow=False)
+    for path in (a, b):
+        np.testing.assert_array_equal(hdr_io.read_hdr(path), jhdr_io.read_hdr(path))
+    np.testing.assert_array_equal(hdr_io.rgbe_encode(rgb), jhdr_io.rgbe_encode(rgb))
+
+
+def _hdr_tree(root, n):
+    rs = np.random.RandomState(2)
+    for i in range(n):
+        sub = os.path.join(root, f"scene{i % 3}")
+        os.makedirs(sub, exist_ok=True)
+        jhdr_io.write_hdr(os.path.join(sub, f"img{i:02d}.hdr"), _radiance(rs, 64, 96))
+
+
+def test_get_train_dataset_same_files_and_samples(tmp_path, monkeypatch):
+    _hdr_tree(str(tmp_path), 23)  # 23 files: one goes to the 1-in-20 test split
+    monkeypatch.delenv("SINGLEHDR_DORF_PATH", raising=False)
+    got = synth.get_train_dataset(str(tmp_path), patch_size=32)
+    want = jsynth.get_train_dataset(str(tmp_path), patch_size=32)
+    assert got._members[0]._paths == want._members[0]._paths
+    assert len(got._members[0]._paths) == 21
+    assert len(got) == len(want)
+    for idx in (0, 5, len(want) - 1):
+        for a, b in zip(got[idx], want[idx]):
+            np.testing.assert_array_equal(a, b)
+    for split in ("train", "test"):
+        assert synth.discover_hdr_files(str(tmp_path), split) == jsynth.discover_hdr_files(
+            str(tmp_path), split)
+
+
+def test_random_sample_loader_same_batches():
+    data = np.arange(1000 * 3, dtype=np.float32).reshape(1000, 3)
+    with loader.RandomSampleLoader(ArrayDataset(data), 8, n_workers=1, seed=5) as a, \
+            jloader.RandomSampleLoader(JArrayDataset(data), 8, n_workers=1, seed=5) as b:
+        for _ in range(3):
+            got, want = a.read_batch(), b.read_batch()
+            assert len(got) == len(want) == 3
+            for x, y in zip(got, want):
+                np.testing.assert_array_equal(x, y)
+
+
+def test_jpeg_roundtrip_equal():
+    rs = np.random.RandomState(3)
+    batch = (rs.rand(3, 32, 48, 3) * 255).astype(np.uint8)
+    q = [30, 70, 95]
+    np.testing.assert_array_equal(jpeg.jpeg_roundtrip_batch(batch, q),
+                                  jjpeg.jpeg_roundtrip_batch(batch, q))
+
+
+def test_utils_equal(tmp_path):
+    for v in ("true", "F", "1", "no", True):
+        assert utils.str2bool(v) == jutils.str2bool(v)
+    with pytest.raises(argparse.ArgumentTypeError):
+        utils.str2bool("maybe")
+    dirs = utils.create_run_dirs(str(tmp_path), "deq")
+    assert sorted(dirs) == ["outputImg", "tensorboard"]
+    assert all(os.path.isdir(p) and p.startswith(str(tmp_path)) for p in dirs.values())

@@ -265,12 +265,19 @@ def test_port_imports_no_jax():
         "import singlehdr_tpu_torch.ops.losses, singlehdr_tpu_torch.ops.tonemap\n"
         "import singlehdr_tpu_torch.train.state, singlehdr_tpu_torch.train.steps\n"
         "import singlehdr_tpu_torch.train.checkpoint, singlehdr_tpu_torch.train.loop\n"
-        "import singlehdr_tpu_torch.train.metrics\n"
+        "import singlehdr_tpu_torch.train.metrics, singlehdr_tpu_torch.utils\n"
+        "import singlehdr_tpu_torch.calib, singlehdr_tpu_torch.calib.emor, singlehdr_tpu_torch.calib.crf\n"
+        "import singlehdr_tpu_torch.data.hdr_io, singlehdr_tpu_torch.data.datasets\n"
+        "import singlehdr_tpu_torch.data.synth, singlehdr_tpu_torch.data.jpeg\n"
+        "import singlehdr_tpu_torch.data.native_jpeg, singlehdr_tpu_torch.data.loader\n"
+        "singlehdr_tpu_torch.calib.get_crf_bank()\n"
+        "singlehdr_tpu_torch.data.native_jpeg.available()\n"
         "import tempfile\n"
         "import chip_smoke\n"
         "with tempfile.TemporaryDirectory() as d:\n"
         "    chip_smoke.write_hdr_files(d, 1)\n"
         "bad = [m for m in ('jax', 'flax', 'optax') if m in sys.modules]\n"
+        "bad += [m for m in sys.modules if m == 'singlehdr_tpu' or m.startswith('singlehdr_tpu.')]\n"
         "assert not bad, bad\n"
     )
     # the smoke script itself names no module of the JAX package
@@ -285,6 +292,43 @@ def test_port_imports_no_jax():
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
+
+
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("b,n,seed", [(2, 3 * 32 * 32, 0), (4, 3 * 48 * 40, 1)])
+def test_chip_smoke_k1_library_route_is_k1(b, n, seed):
+    """The library route that chip_smoke times beside K1 (grid_sample) computes
+    ``apply_rf_plain`` on the smoke run's own K1-bwd inputs (values outside
+    [0, 1], exact 0 and 1, bin edges)."""
+    from singlehdr_tpu_torch.ops.cuda.apply_rf_cuda import apply_rf_plain
+
+    cs = _chip_smoke()
+    x, rf, _ = cs.k1_bwd_inputs(torch.device("cpu"), b, n, seed)
+    assert cs.k1_library_error(x, rf, apply_rf_plain(x, rf)) <= 1e-6
+
+
+@pytest.mark.parametrize("b,n,seed", [(2, 3 * 32 * 32, 0), (4, 3 * 48 * 40, 1), (16, 3 * 16 * 16, 2)])
+def test_chip_smoke_k1_bwd_library_route_is_k1_bwd(b, n, seed):
+    """The library route that chip_smoke times beside K1-bwd (grid_sample's
+    backward) gives the curve gradient of ``apply_rf_bwd_plain`` within 1e-5
+    of float64, and its gx away from the lerp's kinks within 1e-6."""
+    from singlehdr_tpu_torch.ops.cuda.apply_rf_cuda import apply_rf_bwd_plain
+
+    cs = _chip_smoke()
+    x, rf, g = cs.k1_bwd_inputs(torch.device("cpu"), b, n, seed)
+    gx, _ = apply_rf_bwd_plain(x, rf, g, True, False)
+    _, grf = apply_rf_bwd_plain(x.double(), rf.double(), g.double(), False, True)
+    grf_rel, gx_rel, kinks = cs.k1_bwd_library_error(x, rf, g, gx, grf)
+    assert grf_rel <= 1e-5 and gx_rel <= 1e-6
+    assert kinks < x.numel() // 2  # most pixels are compared
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
