@@ -9,13 +9,16 @@ widths, and checks each path against the CPU plain path.
 Phases (each prints its own lines; any failure exits non-zero):
   1 device   card name and power limit (nvidia-smi); TF32 off, true f32
   2 build    nvcc build of singlehdr_tpu_torch/csrc into build/kernels/ (one
-             nvcc per source, in parallel); K2/K4's conv kernel holds
-             tensor-core instructions (HMMA/HGMMA) in its SASS
-  3 kernels  K1..K4 vs plain at batch 4, 576x576 (512 + the 32 px pad), and
-             K4 at an odd [1, 64, 37, 53] (the ceil edge of its SAME pool):
-             K1 bit-equal; K2..K4 max|err| / max|plain| <= 1e-4; each case's
-             kernel ms, plain ms, bound ms and share of the bound; K1's
-             library route (grid_sample) held to K1's plain version and timed
+             nvcc per source, in parallel); K2/K4's conv kernel and K3's
+             kernel hold tensor-core instructions in their SASS (K3: HGMMA)
+  3 kernels  K1..K4 vs plain at batch 4, 576x576 (512 + the 32 px pad), K3 at
+             an odd [1, 3, 37, 53] and K4 at an odd [1, 64, 37, 53] (the ceil
+             edge of its SAME pool): K1 bit-equal; K2..K4 max|err| /
+             max|plain| <= 1e-4; each case's kernel ms, plain ms, bound ms and
+             share of the bound; the library routes of K1 (grid_sample) and
+             K3 (cuDNN's f32 conv over the stack built beforehand) held to the
+             plain versions and timed; K1 and grid_sample also timed with the
+             L2 flushed before each call
   4 serving  seeded ReverseCameraPipeline on the card behind make_server;
              4 client threads POST 8 JPEG 512x512 images
   5 parity   one 512x512 image on the card vs the CPU plain path
@@ -38,9 +41,15 @@ Phases (each prints its own lines; any failure exits non-zero):
 The second-to-last line is the kernels' JSON record (with each kernel's
 launches per serving batch and per training step, its bound, and the library
 route's time where PyTorch computes the same function: grid_sample for K1,
-its backward for K1-bwd, cuDNN's convs + the pool for K2 and K4; none for
-K3), the last the result.  K2 and K4 count one launch a stage call, which
+its backward for K1-bwd, cuDNN's convs + the pool for K2 and K4, cuDNN's
+stride-2 conv + ReLU over the 93-channel stack built beforehand for K3), the
+last the result.  K2 and K4 count one launch a stage call, which
 makes two launches of the conv kernel (``kernel_launches_per_stage``).
+
+Kernel, plain and library times (phases 3 and 8) are device times of
+back-to-back calls with the host kept ahead (``device_ms``): K1 runs for less
+time than its wrapper's host work, which a plain CUDA-event loop would time
+instead.  Per-net times (phase 7) are CUDA-event times of whole nets.
 
 A kernel's bound is the least time the card could take for its work: the
 larger of its bytes (each input read once, each output written once) over
@@ -97,14 +106,17 @@ PLANTED_FAULTS = ("lin.crf_feature_net.stem_bn.weight", "lin.crf_feature_net.ste
 # per batch of the pipeline: launches of each kernel
 PER_BATCH = {"apply_rf": 1, "unet_stage2": 6, "lin_feature_stem": 1, "encoder_stage2": 2}
 HBM_BYTES_PER_S = 3.35e12
+SLEEP_CYCLES_PER_S = 2.0e9  # device_ms's lead: at least the SM clock (1.98 GHz at most)
 F32_TENSOR_FLOPS = 495e12 / 3   # 3xTF32
 F32_SIMT_FLOPS = 67e12
 ODD_K4_SHAPE = (1, 64, 37, 53)  # hal enc2's widths at odd H, W
+ODD_K3_SHAPE = (1, 3, 37, 53)   # ragged tiles, odd SAME pads, REFLECT at every edge
 # the library route of each kernel (library_ms): K1 and K1-bwd are grid_sample
 # and its backward, K2 and K4 their plain versions (cuDNN's f32 convs + the
-# pool); K3 has none.  A library route is held to its kernel's plain version
-# within LIBRARY_REL_TOL: grid_sample rounds 2x - 1, and its backward sums the
-# curve gradient in its own atomic order
+# pool), K3 cuDNN's f32 stride-2 conv + ReLU over the feature stack built
+# beforehand.  A library route is held to its kernel's plain version within
+# LIBRARY_REL_TOL: grid_sample rounds 2x - 1, its backward sums the curve
+# gradient in its own atomic order, and cuDNN sums in its own order
 LIBRARY_REL_TOL = 1e-4
 # K2 and K4 count one launch a stage call; each call makes this many launches
 # of the conv kernel (conv1, then conv2 with the pool)
@@ -148,10 +160,57 @@ def cuda_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def enqueue_s(fn) -> float:
+    """Host seconds one call of ``fn`` takes to enqueue its work (warmed, on
+    an idle stream)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back runs with the
+    host kept ahead: a sleep kernel holds the stream while the host enqueues
+    the runs, so the wrappers' host work between launches (argument checks,
+    ctypes) is not counted (CUDA events, warmed).  For kernels whose run is
+    shorter than their host work, ``cuda_ms`` measures the host instead."""
+    lead_s = 2 * iters * enqueue_s(fn) + 1e-3
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(SLEEP_CYCLES_PER_S * lead_s))
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def cold_l2_ms(fn, iters: int = 10) -> float:
+    """Mean device time of one call of ``fn`` with the 50 MB L2 flushed first
+    (a 128 MB write before each call; host kept ahead as in ``device_ms``):
+    the time a caller whose inputs come from device memory would see."""
+    junk = torch.empty(32 * 2**20, device=torch.cuda.current_device())
+    lead_s = 2 * enqueue_s(fn) + 1e-4
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for _ in range(iters)]
+    for start, stop in ev:
+        junk.zero_()
+        torch.cuda._sleep(int(SLEEP_CYCLES_PER_S * lead_s))
+        start.record()
+        fn()
+        stop.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(stop) for start, stop in ev) / iters
+
+
 def check_tensor_core_sass() -> None:
-    """Phase 2: K2/K4's conv kernel runs on the tensor cores: every
-    instantiation's SASS (cuobjdump of the built library) holds HMMA
-    (mma.sync) or HGMMA (wgmma) instructions."""
+    """Phase 2: K2/K4's conv kernel and K3's kernel run on the tensor cores:
+    every conv instantiation's SASS (cuobjdump of the built library) holds
+    HMMA (mma.sync) or HGMMA (wgmma) instructions, and K3's holds HGMMA."""
     from pathlib import Path
 
     from singlehdr_tpu_torch.ops.cuda import _build
@@ -159,7 +218,8 @@ def check_tensor_core_sass() -> None:
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(_build.build())], capture_output=True,
                           text=True, check=True).stdout
-    convs = [f for f in sass.split("Function : ")[1:] if "conv_gemm_kernel" in f.split()[0]]
+    functions = sass.split("Function : ")[1:]
+    convs = [f for f in functions if "conv_gemm_kernel" in f.split()[0]]
     counts = [(f.count(" HMMA."), f.count(" HGMMA.")) for f in convs]
     per = [hmma + hgmma for hmma, hgmma in counts]
     print(f"  conv_gemm_kernel: {len(convs)} instantiations; tensor-core instructions in SASS: "
@@ -168,6 +228,11 @@ def check_tensor_core_sass() -> None:
     if not convs or not min(per) > 0:
         raise AssertionError("K2/K4's conv kernel has instantiations without tensor-core "
                              "instructions in its SASS")
+    stems = [f for f in functions if "lin_stem_kernel" in f.split()[0]]
+    hgmma = sum(f.count(" HGMMA.") for f in stems)
+    print(f"  lin_stem_kernel: {len(stems)} function(s); HGMMA {hgmma}", flush=True)
+    if not stems or not hgmma > 0:
+        raise AssertionError("K3's kernel has no HGMMA (wgmma) instructions in its SASS")
 
 
 def kernel_cases(pipe, dev):
@@ -223,6 +288,8 @@ def kernel_cases(pipe, dev):
     cases.append(("encoder_stage2", f"hal.enc2 odd {ODD_K4_SHAPE}",
                   (odd, enc.conv1.weight, bias(enc.conv1.bias.numel()), enc.conv2.weight,
                    bias(enc.conv2.bias.numel()))))
+    odd = torch.rand(*ODD_K3_SHAPE, generator=g, device=dev)
+    cases.append(("lin_feature_stem", f"lin.stem odd {ODD_K3_SHAPE}", (odd, k7, b7)))
     return cases
 
 
@@ -307,6 +374,32 @@ def k1_bwd_library_error(x, rf, g, gx_plain, grf_ref) -> tuple:
     return grf_rel, gx_rel, int((~away).sum())
 
 
+def lin_stem_features(x: torch.Tensor) -> torch.Tensor:
+    """K3's 93-channel stack of x, SAME-padded for the 7x7/2 stem (the input
+    of K3's library route, built beforehand)."""
+    from singlehdr_tpu_torch.ops.histogram import linearization_features
+    from singlehdr_tpu_torch.ops.resize import same_pads
+
+    pt, pb = same_pads(x.shape[2], 7, 2)
+    pl, pr = same_pads(x.shape[3], 7, 2)
+    return torch.nn.functional.pad(linearization_features(x), (pl, pr, pt, pb))
+
+
+def lin_stem_library(feats: torch.Tensor, k7: torch.Tensor, b7: torch.Tensor) -> torch.Tensor:
+    """K3's conv as one PyTorch call on the prebuilt stack: cuDNN's f32
+    stride-2 conv (TF32 off in phase 1), then ReLU."""
+    return torch.relu(torch.nn.functional.conv2d(feats, k7, b7, stride=2))
+
+
+def k3_library_error(feats, k7, b7, want: torch.Tensor) -> float:
+    """max|err| / max|plain| of K3's library route against K3's plain output."""
+    got = lin_stem_library(feats, k7, b7)
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    if not rel <= LIBRARY_REL_TOL:
+        raise AssertionError(f"the conv over the prebuilt stack is not K3's function: rel {rel:.3e}")
+    return rel
+
+
 def check_kernels(pipe, dev) -> dict:
     from singlehdr_tpu_torch.ops.cuda import apply_rf_cuda, enc_pool_cuda, lin_stem_cuda, unet_stage_cuda
 
@@ -318,7 +411,7 @@ def check_kernels(pipe, dev) -> dict:
     }
     report = {n: {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                   "bound_ms": 0.0, "ops_bound_ms": 0.0, "simt_bound_ms": 0.0,
-                  "library_ms": None if n == "lin_feature_stem" else 0.0} for n in plain}
+                  "library_ms": 0.0} for n in plain}
     with torch.inference_mode():
         for name, label, args in kernel_cases(pipe, dev):
             kernel, ref = plain[name]
@@ -340,15 +433,23 @@ def check_kernels(pipe, dev) -> dict:
                     raise AssertionError(f"apply_rf {label}: not bit-equal (max err {abs_err})")
             elif not rel_err <= KERNEL_REL_TOL:
                 raise AssertionError(f"{name} {label}: rel err {rel_err:.3e} > {KERNEL_REL_TOL}")
-            ms, plain_ms = cuda_ms(lambda: kernel(*args)), cuda_ms(lambda: ref(*args))
+            ms, plain_ms = device_ms(lambda: kernel(*args)), device_ms(lambda: ref(*args), 5)
             library = ""
             if name == "apply_rf":  # grid_sample, timed on a grid built beforehand
                 lib_rel = k1_library_error(*args, want[0])
                 grid = rf_grid(args[0])
-                lib_ms = cuda_ms(lambda: apply_rf_library(args[1], grid))
-                library = f"  library (grid_sample) {lib_ms:.3f} ms, rel {lib_rel:.3e}"
+                lib_ms = device_ms(lambda: apply_rf_library(args[1], grid))
+                library = (f"  library (grid_sample) {lib_ms:.4f} ms, rel {lib_rel:.3e}; L2 flushed "
+                           f"before each call: kernel {cold_l2_ms(lambda: kernel(*args)):.4f} ms, "
+                           f"grid_sample {cold_l2_ms(lambda: apply_rf_library(args[1], grid)):.4f} ms")
+            elif name == "lin_feature_stem":  # cuDNN's conv over the stack built beforehand
+                feats = lin_stem_features(args[0])
+                lib_rel = k3_library_error(feats, *args[1:], want[0])
+                lib_ms = device_ms(lambda: lin_stem_library(feats, *args[1:]), 5)
+                library = f"  library (cuDNN conv on the prebuilt stack) {lib_ms:.3f} ms, rel {lib_rel:.3e}"
+                del feats
             else:
-                lib_ms = plain_ms  # K2, K4: cuDNN; K3: none (library_ms stays None)
+                lib_ms = plain_ms  # K2, K4: cuDNN's convs + the pool
             flop, moved = kernel_flop(name, args), nbytes(args) + nbytes(want)
             bound_ms, bound_by, simt_ms = bound(flop, moved)
             r = report[name]
@@ -356,13 +457,12 @@ def check_kernels(pipe, dev) -> dict:
             r["max_rel_err"] = max(r["max_rel_err"], rel_err)
             r["ms"] += ms
             r["plain_ms"] += plain_ms
-            if r["library_ms"] is not None:
-                r["library_ms"] += lib_ms
+            r["library_ms"] += lib_ms
             r["bound_ms"] += bound_ms
             r["ops_bound_ms"] += bound_ms if bound_by == "operations" else 0.0
             r["simt_bound_ms"] += simt_ms
             print(f"  {name:17s} {label:36s} max_abs_err {abs_err:.3e} rel {rel_err:.3e} "
-                  f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {bound_ms:.3f} ms "
+                  f"kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  bound {bound_ms:.4f} ms "
                   f"({bound_by}; f32 CUDA cores {simt_ms:.3f})  share {bound_ms / ms:.1%}  "
                   f"{flop / 1e9:.1f} GFLOP {moved / 1e6:.1f} MB  {flop / ms / 1e9:.1f} TFLOP/s"
                   f"{library}", flush=True)
@@ -558,13 +658,13 @@ def check_k1_bwd(dev) -> dict:
         plain_rel = (pgrf - ref).abs().max().item() / scale
         if not rel_err <= BWD_REL_TOL:
             raise AssertionError(f"apply_rf_bwd [{b}, {n}]: grf rel err {rel_err:.3e} > {BWD_REL_TOL}")
-        ms = cuda_ms(lambda: apply_rf_bwd(x, rf, g, True, True))
-        plain_ms = cuda_ms(lambda: apply_rf_bwd_plain(x, rf, g, True, True))
-        rf_ms = cuda_ms(lambda: apply_rf_bwd(x, rf, g, False, True))
-        rf_plain_ms = cuda_ms(lambda: apply_rf_bwd_plain(x, rf, g, False, True))
+        ms = device_ms(lambda: apply_rf_bwd(x, rf, g, True, True))
+        plain_ms = device_ms(lambda: apply_rf_bwd_plain(x, rf, g, True, True), 5)
+        rf_ms = device_ms(lambda: apply_rf_bwd(x, rf, g, False, True))
+        rf_plain_ms = device_ms(lambda: apply_rf_bwd_plain(x, rf, g, False, True), 5)
         lib_grf_rel, lib_gx_rel, kinks = k1_bwd_library_error(x, rf, g, pgx, ref)
         grid = rf_grid(x)
-        lib_ms = cuda_ms(lambda: apply_rf_bwd_library(rf, grid, g))
+        lib_ms = device_ms(lambda: apply_rf_bwd_library(rf, grid, g), 5)
         report["max_abs_err"] = max(report["max_abs_err"], abs_err)
         report["max_rel_err"] = max(report["max_rel_err"], rel_err)
         report["ms"] += ms
@@ -816,7 +916,7 @@ def train_timings(dev, card: str, bwd_report: dict) -> None:
     # ldr), and on phase 8's input, 20 % of whose pixels sit in the hot bin 1023
     ldr, invcrf = batch[0].reshape(TRAIN_BATCH, -1), batch[5].contiguous()
     g = torch.randn_like(ldr)
-    step_bwd_ms = cuda_ms(lambda: apply_rf_bwd(ldr, invcrf, g, False, True))
+    step_bwd_ms = device_ms(lambda: apply_rf_bwd(ldr, invcrf, g, False, True))
     hot_bwd_ms = bwd_report["rf_only_ms"]
     print(f"  joint step b{TRAIN_BATCH} @ {TRAIN_HW}^2 f32, median of {len(rows)}: {total:.2f} ms device "
           f"({wall:.2f} ms wall), {TRAIN_BATCH / total * 1e3:.2f} img/s; forward+loss {fwd:.2f} ms, "

@@ -15,7 +15,7 @@ from __future__ import annotations
 import argparse
 import os
 
-from singlehdr_tpu_torch.cli import training_device
+from singlehdr_tpu_torch.cli import cli_device
 from singlehdr_tpu_torch.data.synth import get_train_dataset
 from singlehdr_tpu_torch.models.vgg16 import Vgg16Features
 from singlehdr_tpu_torch.train.checkpoint import restore_pretrained_subnets
@@ -53,7 +53,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def run(args):
     """Train; returns the final ``TrainState``."""
-    device = training_device(args.device)
+    device = cli_device(args.device)
     cfg = LoopConfig(batch_size=args.batch_size, iterations=args.iterations, use_jpeg=args.jpeg,
                      n_workers=args.workers, log_every=args.log_every,
                      ckpt_every=args.ckpt_every)

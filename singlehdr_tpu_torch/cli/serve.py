@@ -16,6 +16,7 @@ import argparse
 import numpy as np
 import torch
 
+from singlehdr_tpu_torch.cli import cli_device
 from singlehdr_tpu_torch.convert import load_jax_variables
 from singlehdr_tpu_torch.inference import HdrPredictor
 from singlehdr_tpu_torch.models import build_pipeline
@@ -39,8 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup", type=str, default="512x512",
                    help="comma-separated HxW sizes to run at startup "
                         "(batch 1 and --max_batch each); '' disables")
-    p.add_argument("--device", type=str,
-                   default="cuda" if torch.cuda.is_available() else "cpu")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default; fails without a card) or cpu")
     return p
 
 
@@ -53,7 +54,7 @@ def parse_sizes(spec: str):
 
 
 def load_pipeline(weights: str | None, device) -> torch.nn.Module:
-    pipe = build_pipeline(seed=INIT_SEED)
+    pipe = build_pipeline(seed=INIT_SEED, device="cpu")
     if weights:
         with np.load(weights) as z:
             load_jax_variables(pipe, {k: z[k] for k in z.files})
@@ -61,7 +62,7 @@ def load_pipeline(weights: str | None, device) -> torch.nn.Module:
 
 
 def run(args) -> None:
-    predictor = HdrPredictor(load_pipeline(args.weights, args.device),
+    predictor = HdrPredictor(load_pipeline(args.weights, cli_device(args.device)),
                              bucket_multiple=args.bucket)
     sizes = parse_sizes(args.warmup)
     if sizes:

@@ -6,9 +6,10 @@
 // Replaces lin_feature_stem in singlehdr_tpu/ops/pallas/lin_stem_pallas.py.
 // As there, the 93-channel stack (image 3 | Sobel dy/dx color-major 6 |
 // soft histograms at 4/8/16 bins, bin-major 84) never reaches device memory:
-// a block computes the features of its stride-2 receptive field in shared
-// memory, 16 channels at a time, and runs the stem over them.  Device
-// traffic is the 3-channel input plus the 64-channel output.
+// a block builds the features of its stride-2 receptive field in shared
+// memory, 8 channels at a time, and runs the stem over them.  Device traffic
+// is the 3-channel input, the 64-channel output and the packed weights (read
+// from L2 by every block).
 //
 // Border semantics are handled in the kernel, so the TPU wrapper's border
 // ring recompute is not needed:
@@ -18,23 +19,62 @@
 //   * SAME padding at stride 2 is asymmetric (2 low / 3 high on an even
 //     extent); the wrapper passes the low pads.
 //
-// Bound on this card: 49 * 93 * 64 FMAs per output pixel in f32 — FMA-bound.
-// A thread holds 4 output rows x 16 channels (64 accumulators); one warp
-// shares one channel group, so its weight reads (packed [93][7][7][64]) are
-// broadcasts.  Features are stored split by column parity, so the stride-2
-// taps of neighbouring threads hit neighbouring shared-memory words.
+// What bounds it: the stem's 49 * 93 * 64 multiply-adds an output pixel.  In
+// f32 on the CUDA cores that caps it at 67 TFLOP/s; this kernel runs the conv
+// as an implicit GEMM on the tensor cores in 3xTF32 (tf32_mma.cuh), capped at
+// 165 TFLOP/s.  A block owns a 16 x 16 output tile of one image: M = 256
+// pixels, N = 64 channels, K = 96 * 49 (93 channels padded to 96 with zero
+// weights), walked in 12 chunks of 8 channels.  Per chunk:
+//   * the block builds the chunk's features over the tile's 37 x 37
+//     receptive field and splits each ONCE into TF32 hi and lo planes, stored
+//     by column parity (ops/cuda/lin_stem_cuda.py documents the layout), so
+//     that a stride-2 tap of 8 neighbouring output columns reads 8
+//     neighbouring words; the channel stride (1416 = 8 mod 32 floats) puts
+//     the 4 channels of an A-fragment load on distinct banks;
+//   * K runs in 49 k-steps, one tap (ky, kx) x the chunk's 8 channels each.
+//     The 8 warps (2 warpgroups) each own 2 output rows; a warpgroup issues
+//     wgmma.mma_async m64n64k8 tf32 for its two m64 row blocks, A gathered
+//     from the feature planes into registers, B from shared memory by
+//     descriptor, 3 products a block (lo*hi + hi*lo + hi*hi), each k-step's
+//     A loads overlapping the MMAs of the two k-steps in flight;
+//   * B (the BN-folded weights, split and packed once by the wrapper as
+//     wgmma's K-major core matrices) cannot sit beside the features whole
+//     (196 KB a chunk), so it streams through a 4-slot cp.async ring, one
+//     kernel row (7 k-steps, 28 KB) a slot, two slots ahead.
+// The epilogue adds the bias, applies ReLU and stores NCHW, masked at the
+// ragged edge.  The index maps are simulated in numpy by
+// tests/test_torch_lin_stem_gemm.py.
+#include <cstdint>
+
 #include "common.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int TO = 16;            // output tile: TO x TO pixels
-constexpr int RY = 2 * TO + 5;    // receptive field extent (rows and cols)
-constexpr int PWID = (RY + 1) / 2;  // entries per column-parity plane
-constexpr int CH = 16;            // feature channels per chunk
-constexpr int NF = 93;            // feature channels
-constexpr int OUT_F = 64;         // stem output channels
-constexpr int IMG = RY + 2;       // raw image extent (+1 Sobel border a side)
-constexpr int kThreads = 256;     // 16 cols x 4 row groups x 4 channel groups
+constexpr int TO = 16;                 // output tile: TO x TO pixels
+constexpr int RY = 2 * TO + 5;         // receptive field extent (rows and cols), 37
+constexpr int PWID = (RY + 1) / 2;     // entries of a column-parity plane row, 19
+constexpr int ROW = 2 * PWID;          // floats of a feature row (both parities), 38
+constexpr int CS = 1416;               // channel stride of a feature plane (>= RY * ROW)
+constexpr int CC = 8;                  // channels a chunk (the MMA's k)
+constexpr int NF = 93;                 // feature channels
+constexpr int CHUNKS = (NF + CC - 1) / CC;  // 12; channels 93..95 have zero weights
+constexpr int OUT_F = 64;              // stem output channels (the MMA's n)
+constexpr int TAPS = 49;               // k-steps a chunk
+constexpr int IMG = RY + 2;            // raw image extent (+1 Sobel border a side)
+constexpr int KSTEP_FLOATS = 2 * OUT_F * CC;  // hi + lo planes of one k-step's B
+constexpr int SLICE = 7;                      // k-steps a ring slot: one kernel row
+constexpr int SLICE_FLOATS = SLICE * KSTEP_FLOATS;
+constexpr int SLICES = CHUNKS * TAPS / SLICE;
+constexpr int kBuf = 4;                // ring slots; slice s + 2 loads while s runs
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kSets = 3;               // A register sets: 2 k-steps of MMAs in flight
+constexpr int kChannels = CHUNKS * CC;  // 96
+// ring | feature hi | feature lo | image | channel table [3][96]
+constexpr int kSmemFloats = kBuf * SLICE_FLOATS + 2 * CC * CS + 3 * IMG * IMG + 3 * kChannels;
+static_assert(CS >= RY * ROW && CS % 32 == 8, "feature channel stride");
+static_assert(TAPS % SLICE == 0, "a slice is one kernel row");
 
 __device__ __forceinline__ int reflect_clamp(int i, int n) {
   if (i < 0) i = -i;
@@ -42,7 +82,9 @@ __device__ __forceinline__ int reflect_clamp(int i, int n) {
   return min(max(i, 0), n - 1);
 }
 
-// feature ch of the pixel whose 3x3 neighbourhood centres at img_s[.][a][b]
+// feature ch (< 9: the image or a Sobel edge) of the pixel whose 3x3
+// neighbourhood centres at img_s[.][a][b]; the histogram channels take the
+// channel table (below)
 __device__ __forceinline__ float feature(const float* img_s, int ch, int a, int b) {
   const int plane = IMG * IMG;
   if (ch < 3) return img_s[ch * plane + a * IMG + b];
@@ -62,6 +104,18 @@ __device__ __forceinline__ float feature(const float* img_s, int ch, int a, int 
     const float sl = (c[-1 - IMG] + 2.0f * c[-1]) + c[-1 + IMG];
     return sr - sl;
   }
+  return 0.0f;
+}
+
+// Channel table of the 96 padded channels: a soft-histogram channel ch
+// (9 <= ch < 93, bin-major at 4, 8, 16 bins) is max(0, 1 - |x[color] -
+// center| * nb); color -1 marks the image and Sobel channels, -2 the zero
+// padding channels.
+__device__ __forceinline__ void channel_entry(int ch, float& center, float& nbf, int& color) {
+  center = 0.0f;
+  nbf = 0.0f;
+  color = ch < 9 ? -1 : -2;
+  if (ch < 9 || ch >= NF) return;
   int j = ch - 9;
   int nb = 4;
   if (j >= 12) {
@@ -73,119 +127,193 @@ __device__ __forceinline__ float feature(const float* img_s, int ch, int a, int 
     }
   }
   const int bin = j / 3;
-  const float center = (2.0f * static_cast<float>(bin + 1) - 1.0f) / (2.0f * nb);
-  const float d = fabsf(img_s[(j % 3) * plane + a * IMG + b] - center);
-  return fmaxf(0.0f, 1.0f - d * static_cast<float>(nb));
+  center = (2.0f * static_cast<float>(bin + 1) - 1.0f) / (2.0f * nb);
+  nbf = static_cast<float>(nb);
+  color = j % 3;
 }
 
-// x: [B, 3, H, W]; wt: [93][7][7][64]; bias: [64]; out: [B, 64, HO, WO]
-__global__ void __launch_bounds__(kThreads, 2)
-lin_stem_kernel(const float* __restrict__ x, const float* __restrict__ wt,
+// x: [B, 3, H, W]; wpk: [CHUNKS][TAPS][hi, lo][8 (n8 group)][2 (k half)][8 n][4 k]
+// (ops/cuda/lin_stem_cuda.py pack_stem_weights); bias: [64]; out: [B, 64, HO, WO]
+__global__ void __launch_bounds__(kThreads, 1)
+lin_stem_kernel(const float* __restrict__ x, const float4* __restrict__ wpk,
                 const float* __restrict__ bias, float* __restrict__ out, int H, int W,
                 int HO, int WO, int pad_t, int pad_l, int tiles_x) {
-  extern __shared__ float smem[];
-  float* img_s = smem;                  // [3][IMG][IMG]
-  float* feat_s = smem + 3 * IMG * IMG;  // [CH][RY][2][PWID]
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                          // [kBuf][SLICE_FLOATS]
+  float* feat_hi = ring + kBuf * SLICE_FLOATS;  // [CC][CS]: row ry at ry * ROW,
+  float* feat_lo = feat_hi + CC * CS;           //   column rx at (rx & 1) * PWID + rx / 2
+  float* img_s = feat_lo + CC * CS;             // [3][IMG][IMG]
+  float* tab = img_s + 3 * IMG * IMG;            // [center | nb | color][96]
 
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.y;
   const int oy0 = (blockIdx.x / tiles_x) * TO;
   const int ox0 = (blockIdx.x % tiles_x) * TO;
   const int ry0 = 2 * oy0 - pad_t;  // image row of receptive-field row 0
   const int rx0 = 2 * ox0 - pad_l;
 
+  // slice s of the ring: k-steps 7 (s % 7) .. 7 (s % 7) + 6 of chunk s / 7,
+  // contiguous in wpk; an empty group past the end keeps the counts uniform
+  auto load_slice = [&](int s) {
+    if (s < SLICES) {
+      float4* dst = reinterpret_cast<float4*>(ring + (s % kBuf) * SLICE_FLOATS);
+      const float4* src = wpk + static_cast<long long>(s) * (SLICE_FLOATS / 4);
+      for (int i = tid; i < SLICE_FLOATS / 4; i += kThreads) cp_async16(dst + i, src + i);
+    }
+    cp_async_commit();
+  };
+  load_slice(0);
+  load_slice(1);
+
   const float* xb = x + static_cast<long long>(b) * 3 * H * W;
-  for (int i = threadIdx.x; i < 3 * IMG * IMG; i += kThreads) {
+  for (int i = tid; i < 3 * IMG * IMG; i += kThreads) {
     const int c = i / (IMG * IMG);
     const int r = i % (IMG * IMG);
     const int gy = reflect_clamp(ry0 - 1 + r / IMG, H);
     const int gx = reflect_clamp(rx0 - 1 + r % IMG, W);
     img_s[i] = xb[(static_cast<long long>(c) * H + gy) * W + gx];
   }
-
-  const int col = threadIdx.x % TO;
-  const int rg = (threadIdx.x / TO) % 4;
-  const int fg = threadIdx.x / (TO * 4);
-  float acc[4][16];
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const float bj = __ldg(bias + fg * 16 + j);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) acc[u][j] = bj;
+  for (int ch = tid; ch < kChannels; ch += kThreads) {
+    int color;
+    channel_entry(ch, tab[ch], tab[kChannels + ch], color);
+    tab[2 * kChannels + ch] = __int_as_float(color);
   }
 
-  for (int c0 = 0; c0 < NF; c0 += CH) {
-    const int nch = min(CH, NF - c0);
-    __syncthreads();  // img_s ready / previous chunk consumed
-    for (int i = threadIdx.x; i < nch * RY * RY; i += kThreads) {
-      const int cl = i / (RY * RY);
-      const int r = i % (RY * RY);
-      const int ry = r / RY;
-      const int rx = r % RY;
-      const int gy = ry0 + ry;
-      const int gx = rx0 + rx;
-      float v = 0.0f;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-        v = feature(img_s, c0 + cl, ry + 1, rx + 1);
-      }
-      feat_s[((cl * RY + ry) * 2 + (rx & 1)) * PWID + (rx >> 1)] = v;
-    }
-    __syncthreads();
+  // A rows of this lane: output row warp * 2 + mt, column g (+8); receptive
+  // row 2 * (warp * 2 + mt) + ky, column 2 * column + kx.  k column t is
+  // chunk channel t, k column t + 4 channel t + 4.
+  int moff[2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) moff[mt] = 2 * (warp * 2 + mt) * ROW + g;
+  const int ch_t = t * CS, ch_t4 = (t + 4) * CS;
 
-    for (int cl = 0; cl < nch; ++cl) {
-      const float* wc = wt + static_cast<long long>(c0 + cl) * 49 * OUT_F + fg * 16;
-      for (int ky = 0; ky < 7; ++ky) {
+  // acc[mt][4 * nt + i]: pixel (row warp * 2 + mt, column g + 8 (i >> 1)),
+  // channel 8 nt + 2 t + (i & 1)
+  float acc[2][OUT_F / 2];
 #pragma unroll
-        for (int kx = 0; kx < 7; ++kx) {
-          float v[4];
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const int ry = 2 * (rg * 4 + u) + ky;
-            v[u] = feat_s[((cl * RY + ry) * 2 + (kx & 1)) * PWID + col + (kx >> 1)];
+    for (int i = 0; i < OUT_F / 2; ++i) acc[mt][i] = 0.0f;
+
+  for (int j = 0; j < CHUNKS; ++j) {
+    __syncthreads();  // the image is staged / the previous chunk's A loads are done
+    // a thread builds all 8 channels of its receptive-field positions: the
+    // position's index math and its 3 pixel loads once, 8 independent values
+    for (int pos = tid; pos < RY * RY; pos += kThreads) {
+      const int ry = pos / RY, rx = pos - ry * RY;
+      const int gy = ry0 + ry, gx = rx0 + rx;
+      const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      const int at = (ry + 1) * IMG + rx + 1;
+      const float p0 = img_s[at], p1 = img_s[IMG * IMG + at], p2 = img_s[2 * IMG * IMG + at];
+      const int off = ry * ROW + (rx & 1) * PWID + (rx >> 1);
+#pragma unroll
+      for (int cl = 0; cl < CC; ++cl) {
+        const int ch = j * CC + cl;
+        const int color = __float_as_int(tab[2 * kChannels + ch]);  // uniform over the block
+        float v = 0.0f;
+        if (inside) {
+          if (color >= 0) {
+            const float d = fabsf((color == 0 ? p0 : color == 1 ? p1 : p2) - tab[ch]);
+            v = fmaxf(0.0f, 1.0f - d * tab[kChannels + ch]);
+          } else if (color == -1) {
+            v = feature(img_s, ch, ry + 1, rx + 1);
           }
-          const float4* wp = reinterpret_cast<const float4*>(wc + (ky * 7 + kx) * OUT_F);
+        }
+        uint32_t hi, lo;
+        split_tf32(v, hi, lo);
+        feat_hi[cl * CS + off] = __uint_as_float(hi);
+        feat_lo[cl * CS + off] = __uint_as_float(lo);
+      }
+    }
+    // (the barrier at the chunk's first slice publishes the features)
+
+    // kSets register sets of A fragments: k-step ks uses set ks % kSets, and
+    // its loads overlap the MMAs of the kSets - 1 k-steps in flight
+    uint32_t ah[kSets][2][4], al[kSets][2][4];
+    for (int kk = 0; kk < TAPS; kk += kSets) {
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const float4 w4 = __ldg(wp + q);
-            const float w[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-#pragma unroll
-              for (int u = 0; u < 4; ++u) {
-                acc[u][q * 4 + e] = fmaf(v[u], w[e], acc[u][q * 4 + e]);
-              }
-            }
+      for (int u = 0; u < kSets; ++u) {
+        const int ks = kk + u;
+        if (ks < TAPS) {
+          const int ky = ks / 7, kx = ks - 7 * ky;
+          const int s = j * 7 + ky;
+          if (kx == 0) {
+            cp_async_wait<1>();  // slice s has landed (this thread's copies)
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // ... for wgmma
+            __syncthreads();     // ... everyone's; slice s - 2's slot is free
+            load_slice(s + 2);
           }
+          const int off = ky * ROW + (kx & 1) * PWID + (kx >> 1);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            const int p0 = ch_t + moff[mt] + off, p1 = ch_t4 + moff[mt] + off;
+            ah[u][mt][0] = __float_as_uint(feat_hi[p0]);      // (row g,     k t)
+            ah[u][mt][1] = __float_as_uint(feat_hi[p0 + 8]);  // (row g + 8, k t)
+            ah[u][mt][2] = __float_as_uint(feat_hi[p1]);      // (row g,     k t + 4)
+            ah[u][mt][3] = __float_as_uint(feat_hi[p1 + 8]);  // (row g + 8, k t + 4)
+            al[u][mt][0] = __float_as_uint(feat_lo[p0]);
+            al[u][mt][1] = __float_as_uint(feat_lo[p0 + 8]);
+            al[u][mt][2] = __float_as_uint(feat_lo[p1]);
+            al[u][mt][3] = __float_as_uint(feat_lo[p1 + 8]);
+          }
+          const float* wst = ring + (s % kBuf) * SLICE_FLOATS + kx * KSTEP_FLOATS;
+          const uint64_t bh = b_desc(wst);
+          const uint64_t bl = b_desc(wst + OUT_F * CC);
+          wgmma_fence();
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            wgmma_tf32<OUT_F>(acc[mt], al[u][mt], bh);
+            wgmma_tf32<OUT_F>(acc[mt], ah[u][mt], bl);
+            wgmma_tf32<OUT_F>(acc[mt], ah[u][mt], bh);
+          }
+          wgmma_commit();
+          wgmma_wait<kSets - 1>();  // k-step ks + 1 - kSets is done: its set is free
         }
       }
     }
+    wgmma_wait<0>();  // the features are read to the end before they are rebuilt
   }
+  cp_async_wait<0>();
 
-  const int ox = ox0 + col;
-  if (ox >= WO) return;
+  float bv[OUT_F / 8][2];
+#pragma unroll
+  for (int nt = 0; nt < OUT_F / 8; ++nt) {
+    bv[nt][0] = __ldg(bias + nt * 8 + 2 * t);
+    bv[nt][1] = __ldg(bias + nt * 8 + 2 * t + 1);
+  }
   float* ob = out + static_cast<long long>(b) * OUT_F * HO * WO;
 #pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int oy = oy0 + rg * 4 + u;
-    if (oy >= HO) continue;
+  for (int mt = 0; mt < 2; ++mt) {
+    const int oy = oy0 + warp * 2 + mt;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      ob[(static_cast<long long>(fg * 16 + j) * HO + oy) * WO + ox] = fmaxf(acc[u][j], 0.0f);
+    for (int nt = 0; nt < OUT_F / 8; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int ox = ox0 + g + 8 * (i >> 1);
+        const int n = nt * 8 + 2 * t + (i & 1);
+        if (oy < HO && ox < WO) {
+          ob[(static_cast<long long>(n) * HO + oy) * WO + ox] =
+              fmaxf(acc[mt][4 * nt + i] + bv[nt][i & 1], 0.0f);
+        }
+      }
     }
   }
 }
 
 }  // namespace
 
-SHDR_API int shdr_lin_stem_f32(const float* x, const float* wt, const float* bias,
+SHDR_API int shdr_lin_stem_f32(const float* x, const float* wpk, const float* bias,
                                float* out, int B, int H, int W, int HO, int WO,
                                int pad_t, int pad_l, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * (3 * IMG * IMG + CH * RY * 2 * PWID);
-  cudaFuncSetAttribute(lin_stem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem));
+  if (B <= 0 || H <= 0 || W <= 0 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * kSmemFloats;
+  const cudaError_t err = cudaFuncSetAttribute(
+      lin_stem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles_x = shdr_ceil_div(WO, TO);
-  dim3 grid(tiles_x * shdr_ceil_div(HO, TO), B);
+  const dim3 grid(tiles_x * shdr_ceil_div(HO, TO), B);
   lin_stem_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, wt, bias, out, H, W, HO, WO, pad_t, pad_l, tiles_x);
+      x, reinterpret_cast<const float4*>(wpk), bias, out, H, W, HO, WO, pad_t, pad_l, tiles_x);
   return static_cast<int>(cudaGetLastError());
 }

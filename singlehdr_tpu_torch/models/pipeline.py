@@ -60,7 +60,7 @@ class ReverseCameraPipeline(nn.Module):
         return PipelineOutputs(c_pred, invcrf, b_pred, alpha, a_pred, hdr)
 
 
-def build_pipeline(seed: int = 0, device="cpu") -> ReverseCameraPipeline:
+def build_pipeline(seed: int = 0, device="cuda") -> ReverseCameraPipeline:
     """A seeded, Keras-initialised pipeline in eval mode on ``device``."""
     pipe = ReverseCameraPipeline()
     keras_init_(pipe, torch.Generator().manual_seed(seed))

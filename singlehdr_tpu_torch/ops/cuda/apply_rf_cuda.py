@@ -3,10 +3,11 @@
 Forward: replaces ``singlehdr_tpu/ops/pallas/apply_rf_pallas.py``
 (``_apply_rf_core`` / ``_kernel``), which recast the gather as one-hot
 matmuls because the TPU has no per-lane gather.  Here each block stages its
-sample's curve in shared memory and gathers from it directly
-(``csrc/apply_rf.cu``).  Bound by device memory: 8 bytes a pixel.  The
-forward is bit-identical to ``apply_rf_plain``: the kernel rounds every
-operation as the plain version does (no FMA).
+sample's curve in shared memory once and gathers from it directly while it
+streams a long run of the sample's pixels in float4s (``csrc/apply_rf.cu``);
+the grid is sized to the card (``blocks_per_sample``).  Bound by device
+memory: 8 bytes a pixel.  The forward is bit-identical to ``apply_rf_plain``:
+the kernel rounds every operation as the plain version does (no FMA).
 
 Backward (K1-bwd): replaces ``_core_bwd`` / ``_bwd_kernel`` of the same file,
 which scattered the curve gradient through one-hot MXU contractions.  Here
@@ -20,11 +21,30 @@ versions, a CUDA tensor launches K1 and, under autograd, K1-bwd, or raises.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch.autograd.function import once_differentiable
 
 from singlehdr_tpu_torch.ops.cuda import _build
 from singlehdr_tpu_torch.ops.cuda._check import count_launch, cuda_f32, ptr, require, stream
+
+
+THREADS = 256     # csrc/apply_rf.cu kThreads
+BLOCKS_PER_SM = 4  # K1's grid: about this many blocks on each SM, over all samples
+MIN_PIXELS_PER_BLOCK = THREADS * 16
+
+
+def blocks_per_sample(b: int, n: int, sms: int) -> int:
+    """K1's blocks for each of b samples of n pixels on a card with ``sms``
+    SMs: enough to fill the card, few enough that each block's one curve
+    staging is spread over at least 16 pixels a thread."""
+    return max(1, min(-(-BLOCKS_PER_SM * sms // b), -(-n // MIN_PIXELS_PER_BLOCK)))
+
+
+@functools.cache
+def _sm_count(index: int | None) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _lerp_indices(x: torch.Tensor, k: int):
@@ -88,10 +108,11 @@ def _apply_rf_forward(x: torch.Tensor, rf: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
+    n = x.numel() // b
     with torch.cuda.device(x.device):
         _build.call(
-            "shdr_apply_rf_f32", ptr(x), ptr(rf), ptr(out), b, x.numel() // b, k,
-            stream(x.device),
+            "shdr_apply_rf_f32", ptr(x), ptr(rf), ptr(out), b, n, k,
+            blocks_per_sample(b, n, _sm_count(x.device.index)), stream(x.device),
         )
     count_launch(apply_rf)
     return out

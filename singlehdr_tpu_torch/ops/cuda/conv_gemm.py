@@ -86,15 +86,22 @@ def weight_planes(w: torch.Tensor, cc: int, kc_pad: int) -> tuple[torch.Tensor, 
     return split_tf32(b)
 
 
-def pack_weights(w: torch.Tensor) -> torch.Tensor:
-    """OIHW f32 weights -> the kernel's packed B:
+def core_matrices(hi: torch.Tensor, lo: torch.Tensor, kc_pad: int, bn: int) -> torch.Tensor:
+    """B planes [chunks * kc_pad, F] -> wgmma's K-major core matrices:
     [F/bn, chunks, kc_pad/8, plane (hi, lo), bn/8 (ng), 2 (kc), 8 (n % 8), 4 (k % 4)]."""
+    rows, f = hi.shape
+    # [plane, chunk, ks, kc, k % 4, nblk, ng, n % 8]: row 8*ks + 4*kc + k % 4, column bn*nblk + 8*ng + n % 8
+    p = torch.stack([hi, lo]).reshape(2, rows // kc_pad, kc_pad // 8, 2, 4, f // bn, bn // 8, 8)
+    return p.permute(5, 1, 2, 0, 6, 3, 7, 4).contiguous()
+
+
+def pack_weights(w: torch.Tensor) -> torch.Tensor:
+    """OIHW f32 weights -> the kernel's packed B (``core_matrices`` of the
+    ``weight_planes``)."""
     f, c, k, _ = w.shape
     bn, cc, kc_pad = conv_plan(c, f, k)
     hi, lo = weight_planes(w, cc, kc_pad)
-    # [plane, chunk, ks, kc, k % 4, nblk, ng, n % 8]: row 8*ks + 4*kc + k % 4, column bn*nblk + 8*ng + n % 8
-    p = torch.stack([hi, lo]).reshape(2, c // cc, kc_pad // 8, 2, 4, f // bn, bn // 8, 8)
-    return p.permute(5, 1, 2, 0, 6, 3, 7, 4).contiguous()
+    return core_matrices(hi, lo, kc_pad, bn)
 
 
 def packed_weights(w: torch.Tensor) -> torch.Tensor:

@@ -2,13 +2,21 @@
 BN-folded 7x7/2 stem in one pass.
 
 Replaces ``singlehdr_tpu/ops/pallas/lin_stem_pallas.py`` (``lin_feature_stem``),
-which kept the 93-channel stack out of HBM.  ``csrc/lin_stem.cu`` computes
-each block's features in shared memory, 16 channels at a time, and runs the
-stem over them, so the stack never reaches device memory either.  The kernel
-applies the border rules itself — Sobel REFLECT padding, the stack zero-padded
-as features, asymmetric SAME padding at stride 2 — so the TPU wrapper's
-border-ring recompute has no counterpart here.  FMA-bound in f32
-(49 * 93 * 64 FMAs per output pixel).
+which kept the 93-channel stack out of HBM.  ``csrc/lin_stem.cu`` builds
+each block's features in shared memory, 8 channels at a time, and runs the
+stem over them as an implicit GEMM on the tensor cores in 3xTF32, so the
+stack never reaches device memory either.  The kernel applies the border
+rules itself — Sobel REFLECT padding, the stack zero-padded as features,
+asymmetric SAME padding at stride 2 — so the TPU wrapper's border-ring
+recompute has no counterpart here.  Bound by the stem's multiply-adds
+(49 * 93 * 64 an output pixel).
+
+The GEMM of a block: M = a TILE x TILE output tile, N = 64, K = 96 * 49 in
+12 chunks of 8 channels (93 padded to 96 with zero weights), each chunk 49
+k-steps of one tap (ky, kx) x 8 channels.  The chunk's features are split
+once into TF32 hi/lo planes; in a plane, channel ``cl``, receptive-field row
+``ry`` and column ``rx`` sit at ``cl * CHANNEL_STRIDE + ry * ROW + (rx % 2) *
+PARITY_WIDTH + rx // 2``.  ``pack_stem_weights`` lays out B to match.
 
 Layout: x [B, 3, H, W]; kernel OIHW [64, 93, 7, 7]; output NCHW.
 """
@@ -27,10 +35,30 @@ from singlehdr_tpu_torch.ops.cuda._check import (
     require,
     stream,
 )
+from singlehdr_tpu_torch.ops.cuda.conv_gemm import core_matrices, split_tf32
 from singlehdr_tpu_torch.ops.histogram import N_FEATURES, linearization_features
 from singlehdr_tpu_torch.ops.resize import same_pads
 
 OUT_F = 64
+KSIZE = 7
+TILE = 16                           # output tile side (csrc/lin_stem.cu TO)
+FIELD = 2 * TILE + KSIZE - 2        # receptive field side, 37
+PARITY_WIDTH = (FIELD + 1) // 2     # 19
+ROW = 2 * PARITY_WIDTH              # 38
+CHANNEL_STRIDE = 1416               # >= FIELD * ROW, = 8 mod 32: bank-spread
+CHUNK = 8                           # channels a chunk
+CHUNKS = -(-N_FEATURES // CHUNK)    # 12
+C_PAD = CHUNKS * CHUNK              # 96
+SLICE_KSTEPS = 7                    # k-steps a slot of the B ring (one kernel row)
+RING_SLOTS = 4
+WARPS = 8
+
+
+def smem_bytes() -> int:
+    """Dynamic shared memory of a launch: B ring, hi/lo feature planes, image,
+    channel table."""
+    ring = RING_SLOTS * SLICE_KSTEPS * 2 * OUT_F * CHUNK
+    return 4 * (ring + 2 * CHUNK * CHANNEL_STRIDE + 3 * (FIELD + 2) ** 2 + 3 * C_PAD)
 
 
 def lin_feature_stem_plain(x, kernel7, bias):
@@ -40,6 +68,22 @@ def lin_feature_stem_plain(x, kernel7, bias):
     pl, pr = same_pads(x.shape[3], 7, 2)
     feats = F.pad(feats, (pl, pr, pt, pb))
     return F.relu(F.conv2d(feats, kernel7, bias, stride=2))
+
+
+def stem_weight_planes(kernel7: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[64, 93, 7, 7] -> B's hi and lo planes [CHUNKS * 49 * 8, 64]: row
+    (j * 49 + ky * 7 + kx) * 8 + cl is channel j * 8 + cl at tap (ky, kx);
+    channels 93..95 are zero."""
+    w = F.pad(kernel7, (0, 0, 0, 0, 0, C_PAD - kernel7.shape[1]))
+    b = w.reshape(OUT_F, CHUNKS, CHUNK, KSIZE * KSIZE).permute(1, 3, 2, 0)
+    return split_tf32(b.reshape(-1, OUT_F))
+
+
+def pack_stem_weights(kernel7: torch.Tensor) -> torch.Tensor:
+    """The kernel's packed B: [1, CHUNKS, 49, plane, 8 (ng), 2 (kc), 8, 4],
+    conv_gemm's core-matrix layout with 392-deep chunks of 49 k-steps."""
+    hi, lo = stem_weight_planes(kernel7)
+    return core_matrices(hi, lo, KSIZE * KSIZE * CHUNK, OUT_F)
 
 
 def lin_feature_stem(x, kernel7, bias):
@@ -65,10 +109,11 @@ def lin_feature_stem(x, kernel7, bias):
     pad_t, _ = same_pads(H, 7, 2)
     pad_l, _ = same_pads(W, 7, 2)
     out = torch.empty((B, OUT_F, ho, wo), dtype=x.dtype, device=x.device)
-    wt = kernel7.permute(1, 2, 3, 0).contiguous()  # [93][7][7][64]
+    # packed every call: the BN-folded kernel is a new tensor each forward
+    wpk = pack_stem_weights(kernel7)
     with torch.cuda.device(x.device):
         _build.call(
-            "shdr_lin_stem_f32", ptr(x), ptr(wt), ptr(bias), ptr(out),
+            "shdr_lin_stem_f32", ptr(x), ptr(wpk), ptr(bias), ptr(out),
             B, H, W, ho, wo, pad_t, pad_l, stream(x.device),
         )
     count_launch(lin_feature_stem)

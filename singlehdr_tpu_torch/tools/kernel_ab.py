@@ -1,4 +1,4 @@
-"""Time K2 and K4 and the serving path of several checkouts on one card, in
+"""Time K1..K4 and the serving path of several checkouts on one card, in
 turns, so that two versions of the kernels are compared within one call.
 
   python3 -m singlehdr_tpu_torch.tools.kernel_ab PARENT . . PARENT [--out FILE]
@@ -8,8 +8,9 @@ Each argument is the root of a checkout (for the parent commit, a
 process with that root first on ``sys.path``, builds its kernels, builds the
 seeded pipeline, and times with that checkout's own ``chip_smoke`` helpers:
 
-- every K2/K4 case of ``chip_smoke.kernel_cases`` at batch 4, 576^2 (CUDA
-  events, 20 launches after a warm-up);
+- every K1..K4 case of ``chip_smoke.kernel_cases`` at batch 4, 576^2 (CUDA
+  events over 20 launches after a warm-up, the host kept ahead by a sleep
+  kernel, the same code for every checkout);
 - the serving numbers of ``chip_smoke`` phase 7: p50 of ``predict_batch`` at
   batch 1 (20 runs) and batch 8 (8 runs), 512^2, and the per-net device times
   at batch 8.
@@ -36,6 +37,26 @@ from singlehdr_tpu_torch.ops import cuda as kernels
 from singlehdr_tpu_torch.ops.cuda import _build
 from singlehdr_tpu_torch.ops.cuda.apply_rf_cuda import apply_rf
 
+
+
+def device_ms(fn, iters):
+    """chip_smoke.device_ms, kept here so that every checkout is timed alike."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2.0e9 * (2 * iters * enqueue_s + 1e-3)))
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 _build.lib()
@@ -44,9 +65,8 @@ pipe = build_pipeline(seed=cs.SEED, device=dev)
 out = {"card": cs.card_line(), "cases": [], "serving": {}, "per_net_ms_b8": {}}
 with torch.inference_mode():
     for name, label, args in cs.kernel_cases(pipe, dev):
-        if name in ("unet_stage2", "encoder_stage2"):
-            fn = getattr(kernels, name)
-            out["cases"].append([name, label, cs.cuda_ms(lambda: fn(*args), 20)])
+        fn = getattr(kernels, name)
+        out["cases"].append([name, label, device_ms(lambda: fn(*args), 20)])
 predictor = HdrPredictor(pipe)
 predictor.warmup([(cs.SERVE_HW, cs.SERVE_HW)], batch_sizes=(1, cs.MAX_BATCH))
 rs = np.random.RandomState(cs.SEED + 2)
@@ -95,11 +115,13 @@ def main() -> int:
         r = run(root)
         r["root"] = root
         results.append(r)
-        k2 = sum(ms for name, _, ms in r["cases"] if name == "unet_stage2")
+        sums = {}
+        for name, _, ms in r["cases"]:
+            sums[name] = sums.get(name, 0.0) + ms
         print(f"{root}  [{r['card']}]", flush=True)
         for name, label, ms in r["cases"]:
-            print(f"  {name:15s} {label:36s} {ms:.3f} ms", flush=True)
-        print(f"  K2 sum {k2:.3f} ms; serving " + ", ".join(
+            print(f"  {name:16s} {label:36s} {ms:.4f} ms", flush=True)
+        print("  sums " + ", ".join(f"{k} {v:.4f} ms" for k, v in sums.items()) + "; serving " + ", ".join(
             f"{b} p50 {v['p50_ms']:.2f} ms {v['img_per_s']:.2f} img/s"
             for b, v in r["serving"].items()) + "; per-net ms at b8 " + ", ".join(
             f"{k} {v:.2f}" for k, v in r["per_net_ms_b8"].items()), flush=True)

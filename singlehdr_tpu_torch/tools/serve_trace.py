@@ -1,0 +1,143 @@
+"""Profile the serving forward on the card: where a batch's time goes.
+
+  python3 -m singlehdr_tpu_torch.tools.serve_trace [--batch 8] [--steps 3] [--out DIR]
+
+Builds the seeded pipeline on the card (TF32 off), warms ``predict_batch`` at
+the batch size and 512^2, then records ``--steps`` batches with
+``torch.profiler`` (CPU and CUDA activities) and exports the chrome trace to
+``DIR/serve_trace.json``.  From the exported trace it prints, per batch: the
+span (first to last event of the recorded window), the device's busy time
+(the union of kernel, memcpy and memset intervals), the idle share, and the
+busy time by kind of kernel, then the ten kernels that took the most time.
+Run from the root of a checkout; it needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# kernel name fragment -> kind, first match wins
+KINDS = (
+    ("apply_rf", "hand K1"),
+    ("conv_gemm_kernel", "hand K2 + K4"),
+    ("lin_stem_kernel", "hand K3"),
+    ("fft", "cuDNN FFT convs"),
+    ("xmma", "cuDNN convs"),
+    ("implicit", "cuDNN convs"),
+    ("conv", "cuDNN convs"),
+    ("cudnn", "cuDNN convs"),
+    ("cutlass", "GEMM / convs (CUTLASS)"),
+    ("gemm", "GEMM / convs (CUTLASS)"),
+    ("batch_norm", "BatchNorm"),
+    ("bn_", "BatchNorm"),
+    ("CatArray", "cat / copies"),
+    ("copy", "cat / copies"),
+    ("elementwise", "elementwise"),
+    ("reduce", "reductions and pools"),
+    ("pool", "reductions and pools"),
+)
+
+
+def kind(name: str, cat: str) -> str:
+    if cat != "kernel":
+        return "H2D / D2H / memset"
+    low = name.lower()
+    for frag, label in KINDS:
+        if frag.lower() in low:
+            return label
+    return "other"
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of [start, end) intervals (us)."""
+    total, end = 0.0, -np.inf
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def summarize(trace: dict, steps: int) -> dict:
+    events = [e for e in trace["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    device = [e for e in events if e.get("cat") in DEVICE_CATS]
+    if not device:
+        raise RuntimeError("the trace holds no device activity")
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    busy = busy_us([(e["ts"], e["ts"] + e["dur"]) for e in device])
+    by_kind, by_name = {}, {}
+    for e in device:
+        k = kind(e["name"], e["cat"])
+        by_kind[k] = by_kind.get(k, 0.0) + e["dur"]
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    per = 1e3 * steps  # us over the window -> ms a batch
+    return {
+        "span_ms": (t1 - t0) / per, "busy_ms": busy / per, "idle_share": 1 - busy / (t1 - t0),
+        "device_events": len(device) / steps,
+        "by_kind_ms": {k: v / per for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])},
+        "top_kernels_ms": {k[:120]: v / per for k, v in
+                           sorted(by_name.items(), key=lambda kv: -kv[1])[:10]},
+    }
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--steps", type=int, default=3)
+    p.add_argument("--size", type=int, default=512)
+    p.add_argument("--out", default="build/trace", help="directory of the exported trace")
+    args = p.parse_args()
+    if not torch.cuda.is_available():
+        print("serve_trace: no CUDA device", file=sys.stderr)
+        return 2
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from singlehdr_tpu_torch.inference import HdrPredictor
+    from singlehdr_tpu_torch.models import build_pipeline
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    predictor = HdrPredictor(build_pipeline(seed=cs.SEED, device=dev))
+    predictor.warmup([(args.size, args.size)], batch_sizes=(args.batch,))
+    rs = np.random.RandomState(cs.SEED + 2)
+    imgs = [rs.rand(args.size, args.size, 3).astype(np.float32) for _ in range(args.batch)]
+    predictor.predict_batch(imgs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.steps):
+            predictor.predict_batch(imgs)
+        torch.cuda.synchronize()
+    os.makedirs(args.out, exist_ok=True)
+    path = os.path.join(args.out, "serve_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        summary = summarize(json.load(f), args.steps)
+    summary.update(card=cs.card_line(), batch=args.batch, size=args.size, steps=args.steps)
+    print(f"serving b{args.batch} @ {args.size}^2, {args.steps} batches [{summary['card']}]: "
+          f"span {summary['span_ms']:.2f} ms a batch, busy {summary['busy_ms']:.2f} ms, "
+          f"idle share {100 * summary['idle_share']:.2f} %, "
+          f"{summary['device_events']:.0f} device events a batch")
+    for k, v in summary["by_kind_ms"].items():
+        print(f"  {k:24s} {v:9.3f} ms  {100 * v / summary['busy_ms']:5.1f} % of busy")
+    print("  top kernels (ms a batch):")
+    for k, v in summary["top_kernels_ms"].items():
+        print(f"    {v:8.3f}  {k}")
+    print("SUMMARY " + json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -58,7 +58,7 @@ class TrainState:
 
 
 def init_multi_state(names: Iterable[str], learning_rate: float, seed: int = 0,
-                     device="cpu") -> TrainState:
+                     device="cuda") -> TrainState:
     """Keras-initialised nets (in sorted name order, from one seeded CPU
     generator) in train mode on ``device``, under one Adam."""
     generator = torch.Generator().manual_seed(seed)
@@ -67,6 +67,6 @@ def init_multi_state(names: Iterable[str], learning_rate: float, seed: int = 0,
     return TrainState(nets, make_optimizer(nets.parameters(), learning_rate))
 
 
-def init_net_state(name: str, learning_rate: float, seed: int = 0, device="cpu") -> TrainState:
+def init_net_state(name: str, learning_rate: float, seed: int = 0, device="cuda") -> TrainState:
     """The state of one net, keyed by its name."""
     return init_multi_state([name], learning_rate, seed, device)

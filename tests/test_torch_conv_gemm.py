@@ -63,7 +63,7 @@ def test_round_tf32_is_rna_on_the_bit_pattern():
     assert np.all(np.abs(_tf32(-ties)) > np.abs(ties))
 
 
-@pytest.mark.parametrize("k", [128 * 9, 16 * 49], ids=["enc2_K1152", "stem_K784"])
+@pytest.mark.parametrize("k", [128 * 9, 16 * 49, 93 * 49], ids=["enc2_K1152", "stem_K784", "lin_stem_K4557"])
 def test_3xtf32_reaches_f32_accuracy_and_1xtf32_does_not(k):
     rs = np.random.RandomState(k)
     a = rs.rand(4096, k).astype(np.float32)                     # activations in [0, 1]

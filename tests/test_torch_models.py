@@ -128,10 +128,19 @@ def test_pipeline_matches_jax():
     assert kernels.launch_counts() == {n: 0 for n in kernels.KERNELS}
 
 
+def test_build_pipeline_defaults_to_the_card(monkeypatch):
+    import inspect
+
+    assert inspect.signature(tm.build_pipeline).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises((AssertionError, RuntimeError)):
+        tm.build_pipeline(seed=0)
+
+
 def test_seeded_init_is_deterministic_and_keras_like():
-    a = tm.build_pipeline(seed=0)
-    b = tm.build_pipeline(seed=0)
-    c = tm.build_pipeline(seed=1)
+    a = tm.build_pipeline(seed=0, device="cpu")
+    b = tm.build_pipeline(seed=0, device="cpu")
+    c = tm.build_pipeline(seed=1, device="cpu")
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert not torch.equal(sa["deq.unet.stem1.weight"], sc["deq.unet.stem1.weight"])

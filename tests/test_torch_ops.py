@@ -30,6 +30,7 @@ from singlehdr_tpu.ops.pallas import lin_stem_pallas as jk3
 from singlehdr_tpu.ops.pallas import unet_stage_pallas as jk2
 from singlehdr_tpu_torch import ops
 from singlehdr_tpu_torch.ops import cuda as kernels
+from singlehdr_tpu_torch.ops.cuda import apply_rf_cuda
 from singlehdr_tpu_torch.ops.cuda.apply_rf_cuda import apply_rf_plain
 from singlehdr_tpu_torch.ops.cuda.enc_pool_cuda import encoder_stage2_plain
 from singlehdr_tpu_torch.ops.cuda.lin_stem_cuda import lin_feature_stem_plain
@@ -89,6 +90,61 @@ def test_apply_rf_bit_equal_to_jax_xla_and_pallas_interpret():
     # each op: the two JAX forms themselves differ by 1 ulp on a few pixels.
     np.testing.assert_array_max_ulp(got, want_pallas, maxulp=1)
     assert (got != want_pallas).mean() < 0.01
+
+
+def _k1_writes(b, n, bps, x_off, out_off):
+    """Write count of every pixel in one K1 launch: the kernel's block ->
+    pixel map (csrc/apply_rf.cu apply_rf_kernel) with x and out starting
+    x_off and out_off floats past a 16-byte boundary."""
+    threads, vec = apply_rf_cuda.THREADS, 4
+    counts = np.zeros((b, n), np.int64)
+    tid = np.arange(threads)
+    for s in range(b):
+        xa, oa = 4 * (x_off + s * n), 4 * (out_off + s * n)  # byte addresses mod 16
+        if (xa ^ oa) & 15:  # scalar walk of each block's run
+            per = -(-n // bps)
+            for bi in range(bps):
+                p = bi * per + tid[:, None] + threads * np.arange(-(-per // threads) + 1)
+                np.add.at(counts[s], p[p < min(n, (bi + 1) * per)], 1)
+            continue
+        head = min(n, ((16 - xa % 16) % 16) >> 2)
+        units = (n - head) >> 2
+        per = -(-units // bps)
+        for bi in range(bps):
+            u0, u1 = bi * per, min(units, bi * per + per)
+            rounds = -(-max(u1 - u0, 0) // (vec * threads)) + 1
+            q0 = u0 + tid[:, None] + vec * threads * np.arange(rounds)
+            q = (q0[..., None] + threads * np.arange(vec))[q0 < u1]
+            q = q[q < u1]
+            np.add.at(counts[s], (head + 4 * q[:, None] + np.arange(4)).reshape(-1), 1)
+            if bi == 0:
+                counts[s, tid[tid < head]] += 1
+            if bi == bps - 1:
+                tail0 = head + 4 * units
+                counts[s, tail0 + tid[tail0 + tid < n]] += 1
+    return counts
+
+
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("r", [0, 1, 2, 3])
+def test_k1_block_map_writes_every_pixel_once(b, r):
+    """For n % 4 = r, b samples (whose bases s * n move the alignment), x at a
+    16-byte boundary or 4 and 8 bytes past it, out matching x or not, and the
+    grid of ``blocks_per_sample`` as well as a few forced widths."""
+    n = 3 * 40 * 40 + 4 * 4096 + r
+    for bps in {apply_rf_cuda.blocks_per_sample(b, n, 132), 1, 7}:
+        for x_off, out_off in ((0, 0), (1, 1), (2, 2), (1, 0)):
+            counts = _k1_writes(b, n, bps, x_off, out_off)
+            assert (counts == 1).all(), (bps, x_off, out_off)
+
+
+def test_k1_grid_fills_the_card_and_spreads_each_curve_staging():
+    """b4 at 576^2 on 132 SMs: 132 blocks a sample (4 a SM), each over ~7.5 k
+    pixels; a tiny sample takes one block."""
+    bps = apply_rf_cuda.blocks_per_sample
+    assert bps(4, 3 * 576 * 576, 132) == 132
+    assert bps(16, 3 * 256 * 256, 132) == 33
+    assert bps(1, 100, 132) == 1 and bps(1024, 3 * 576 * 576, 132) == 1
 
 
 def test_apply_rf_and_monotonic_rf_match_golden():
@@ -329,6 +385,21 @@ def test_chip_smoke_k1_bwd_library_route_is_k1_bwd(b, n, seed):
     grf_rel, gx_rel, kinks = cs.k1_bwd_library_error(x, rf, g, gx, grf)
     assert grf_rel <= 1e-5 and gx_rel <= 1e-6
     assert kinks < x.numel() // 2  # most pixels are compared
+
+
+@pytest.mark.parametrize("hw", [(37, 53), (40, 56)])
+def test_chip_smoke_k3_library_route_is_k3(hw):
+    """The library route that chip_smoke times beside K3 (the conv over the
+    93-channel stack built beforehand, SAME-padded) computes
+    ``lin_feature_stem_plain``."""
+    rs = np.random.RandomState(hw[1])
+    x = torch.from_numpy(rs.rand(1, 3, *hw).astype(np.float32))
+    k7 = _hwio_to_oihw(_glorot(rs, (7, 7, 93, 64)))
+    b7 = torch.from_numpy((rs.randn(64) * 0.1).astype(np.float32))
+    cs = _chip_smoke()
+    feats = cs.lin_stem_features(x)
+    assert feats.shape[1] == 93
+    assert cs.k3_library_error(feats, k7, b7, lin_feature_stem_plain(x, k7, b7)) <= 1e-6
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -57,6 +57,16 @@ def test_pad_crop_roundtrip():
     np.testing.assert_array_equal(crop_back(padded, hw), img)
 
 
+def test_serve_cli_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    """With no --device the CLI serves on the card; without one it raises
+    (pass --device cpu) instead of serving on the CPU."""
+    args = cli_serve.build_parser().parse_args(["--warmup", ""])
+    assert args.device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli_serve.run(args)
+
+
 @pytest.fixture(scope="module")
 def server():
     predictor = HdrPredictor(cli_serve.load_pipeline(None, "cpu"))
@@ -117,3 +127,26 @@ def test_server_micro_batches_concurrent_requests(server):
     assert stats["max_batch"] > 1
     # groups pad up to a warm size: nothing but the warmed sizes ran
     assert predictor._warm[(64, 64)] == {1, 4}
+
+
+def test_serve_trace_busy_time_is_the_union_of_device_intervals():
+    """tools/serve_trace's reading of an exported trace: busy time is the
+    union of overlapping kernel/memcpy intervals, idle share the rest of the
+    span, and kernels are grouped by kind."""
+    from singlehdr_tpu_torch.tools import serve_trace as st
+
+    assert st.busy_us([(0, 10), (5, 12), (20, 25), (21, 22)]) == 17
+    trace = {"traceEvents": [
+        {"ph": "X", "cat": "cpu_op", "name": "aten::conv2d", "ts": 0, "dur": 100},
+        {"ph": "X", "cat": "kernel", "name": "lin_stem_kernel", "ts": 10, "dur": 30},
+        {"ph": "X", "cat": "kernel", "name": "sm90_xmma_fprop_implicit_gemm", "ts": 30, "dur": 20},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD", "ts": 70, "dur": 10},
+        {"ph": "i", "cat": "kernel", "name": "marker", "ts": 5},
+    ]}
+    got = st.summarize(trace, steps=2)
+    assert got["span_ms"] == pytest.approx(0.05)
+    assert got["busy_ms"] == pytest.approx(0.025)
+    assert got["idle_share"] == pytest.approx(0.5)
+    assert got["by_kind_ms"] == pytest.approx({"hand K3": 0.015, "cuDNN convs": 0.01,
+                                               "H2D / D2H / memset": 0.005})
+

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from singlehdr_tpu.data.hdr_io import write_hdr
-from singlehdr_tpu_torch.cli import joint_train, train, training_device
+from singlehdr_tpu_torch.cli import cli_device, joint_train, train
 from singlehdr_tpu_torch.ops import cuda as kernels
 from singlehdr_tpu_torch.train import steps
 from singlehdr_tpu_torch.train.checkpoint import CheckpointManager, restore_pretrained_subnets
@@ -50,7 +50,7 @@ def _deq_batch(seed, b=2, hw=32):
 
 
 def _trained_state(names, seed, steps_taken=1):
-    state = init_multi_state(names, 1e-4, seed=seed)
+    state = init_multi_state(names, 1e-4, seed=seed, device="cpu")
     if "deq" in names:
         step = steps.make_deq_train_step()
         for i in range(steps_taken):
@@ -76,9 +76,9 @@ def test_checkpoint_round_trip_is_bit_exact(tmp_path):
     state = _trained_state(("deq",), seed=0, steps_taken=2)
     mgr = CheckpointManager(str(tmp_path / "ck"))
     assert mgr.latest_step is None
-    assert mgr.restore(init_net_state("deq", 1e-4, seed=5)).step == 0  # nothing to restore
+    assert mgr.restore(init_net_state("deq", 1e-4, seed=5, device="cpu")).step == 0  # nothing to restore
     mgr.save(state)
-    fresh = init_net_state("deq", 1e-4, seed=7)
+    fresh = init_net_state("deq", 1e-4, seed=7, device="cpu")
     assert not torch.equal(fresh.nets["deq"].unet.stem1.weight, state.nets["deq"].unet.stem1.weight)
     restored = mgr.restore(fresh)
     _assert_same_state(restored, state)
@@ -91,7 +91,7 @@ def test_checkpoint_round_trip_is_bit_exact(tmp_path):
 
 
 def test_checkpoint_keeps_max_to_keep(tmp_path):
-    state = init_net_state("deq", 1e-4)
+    state = init_net_state("deq", 1e-4, device="cpu")
     mgr = CheckpointManager(str(tmp_path / "ck"), max_to_keep=3)
     for step in range(1, 8):
         state.step = step
@@ -99,7 +99,7 @@ def test_checkpoint_keeps_max_to_keep(tmp_path):
     assert mgr.steps() == [5, 6, 7] and mgr.latest_step == 7
     assert sorted(os.listdir(mgr.directory)) == [f"step_{s:08d}.pt" for s in (5, 6, 7)]
     with pytest.raises(ValueError, match="holds nets"):
-        mgr.restore(init_multi_state(("deq", "lin"), 1e-4))
+        mgr.restore(init_multi_state(("deq", "lin"), 1e-4, device="cpu"))
 
 
 def test_restore_pretrained_subnets_from_solo_and_multi_checkpoints(tmp_path):
@@ -107,7 +107,7 @@ def test_restore_pretrained_subnets_from_solo_and_multi_checkpoints(tmp_path):
     multi = _trained_state(("deq", "lin", "hal"), seed=2)
     CheckpointManager(str(tmp_path / "deq")).save(solo)
     CheckpointManager(str(tmp_path / "jnt")).save(multi)
-    state = init_multi_state(("deq", "lin", "hal"), 3e-5, seed=3)
+    state = init_multi_state(("deq", "lin", "hal"), 3e-5, seed=3, device="cpu")
     state = restore_pretrained_subnets(state, {
         "deq": str(tmp_path / "deq"),         # one-net checkpoint
         "lin": str(tmp_path / "jnt"),         # multi-net checkpoint holding lin
@@ -117,16 +117,16 @@ def test_restore_pretrained_subnets_from_solo_and_multi_checkpoints(tmp_path):
         want = source.nets[name].state_dict()
         for k, v in state.nets[name].state_dict().items():
             assert torch.equal(v, want[k]), (name, k)
-    hal_init = init_multi_state(("deq", "lin", "hal"), 3e-5, seed=3).nets["hal"].state_dict()
+    hal_init = init_multi_state(("deq", "lin", "hal"), 3e-5, seed=3, device="cpu").nets["hal"].state_dict()
     for k, v in state.nets["hal"].state_dict().items():
         assert torch.equal(v, hal_init[k])
     # a fresh combined Adam over all three nets, at the state's learning rate
     assert not state.optimizer.state and state.learning_rate == 3e-5
     assert len(state.optimizer.param_groups[0]["params"]) == len(list(state.nets.parameters()))
     with pytest.raises(ValueError, match="holds nets"):
-        restore_pretrained_subnets(init_multi_state(("hal",), 1e-5), {"hal": str(tmp_path / "deq")})
+        restore_pretrained_subnets(init_multi_state(("hal",), 1e-5, device="cpu"), {"hal": str(tmp_path / "deq")})
     with pytest.raises(KeyError):
-        restore_pretrained_subnets(init_multi_state(("hal",), 1e-5), {"ref": str(tmp_path / "deq")})
+        restore_pretrained_subnets(init_multi_state(("hal",), 1e-5, device="cpu"), {"ref": str(tmp_path / "deq")})
 
 
 def test_metrics_mean_and_writer(tmp_path):
@@ -144,11 +144,22 @@ def test_metrics_mean_and_writer(tmp_path):
     assert json.loads(lines[0])["loss"] == 0.5 and json.loads(lines[0])["step"] == 3
 
 
+@pytest.mark.parametrize("factory", [init_multi_state, init_net_state])
+def test_state_constructors_default_to_the_card(factory, monkeypatch):
+    """The port's entry points run on the card unless the CPU is asked for."""
+    import inspect
+
+    assert inspect.signature(factory).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises((AssertionError, RuntimeError)):
+        factory(("deq",) if factory is init_multi_state else "deq", 1e-4)
+
+
 def test_training_device_needs_cuda_unless_cpu_is_asked_for(monkeypatch):
-    assert training_device("cpu").type == "cpu"
+    assert cli_device("cpu").type == "cpu"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
-        training_device("cuda")
+        cli_device("cuda")
 
 
 def _run_joint(synth_dir, tmp_path, iterations):
@@ -216,7 +227,7 @@ def test_deq_trainability():
     clean = _smooth_images(rng, 64)
     quant = np.round(clean * 5) / 5
     identity = 8 * float(np.mean((clean - quant) ** 2))  # per-step loss of returning the input
-    state = init_net_state("deq", 1e-3, seed=0)
+    state = init_net_state("deq", 1e-3, seed=0, device="cpu")
     step = steps.make_deq_train_step()
     mask = torch.ones(8, 1, 1, 1)
     losses = []
