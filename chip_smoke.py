@@ -25,10 +25,14 @@ Phases (each prints its own lines; any failure exits non-zero):
   6 launches every kernel counted during phase 4, per batch K1 x1, K2 x6,
              K3 x1, K4 x2
   7 timing   p50 latency and img/s at batch 1 and 8, per-net times at batch 8
-  8 K1-bwd   vs plain at [16, 3*256^2] and [4, 3*576^2]: gx bit-equal, grf
+  8 K1-bwd   vs plain at [16, 3*256^2] and [4, 3*576^2], and with every
+             x = 1.0 at [16, 3*256^2]: gx bit-equal (also gx alone), grf
              max|err| / max|plain| <= 1e-5 against the plain version in
-             float64; a curve-gradient-only case; the library route
-             (grid_sample's backward) held to the plain version and timed
+             float64 and the same bits on three launches (gx + grf twice,
+             grf alone); times warm and with the L2 flushed, with the share
+             of the bound (12 bytes a pixel; 8 for grf alone); the library
+             route (grid_sample's backward) held to the plain version and
+             timed; a curve longer than the kernel's plan raises
   9 training cli.joint_train.run at batch 16, 256^2 on synthetic .hdr files:
              6 steps, then a resume to 8; K1-bwd once per step, K2..K4 never;
              one cli.train --lin step
@@ -86,7 +90,7 @@ TRAIN_HW = 256
 JOINT_RUNS = ((6, 0), (8, 6))  # phase 9: (iterations, resumed from)
 TRAIN_STEPS = sum(n - start for n, start in JOINT_RUNS) + 1  # + one cli.train --lin step
 BWD_SHAPES = ((TRAIN_BATCH, 3 * TRAIN_HW * TRAIN_HW), (KERNEL_BATCH, 3 * 576 * 576))
-BWD_REL_TOL = 1e-5      # grf vs the float64 plain version: f32 atomic sums
+BWD_REL_TOL = 1e-5      # grf vs the float64 plain version: f32 sums in the kernel's order
 STEP_LOSS_REL_TOL = 1e-4
 # card vs CPU gradients, per tensor: max|g_card - g_cpu| <= STEP_GRAD_OWN_TOL
 # of the tensor's own max|g_cpu| + STEP_GRAD_NET_TOL of its net's largest
@@ -630,57 +634,88 @@ def k1_bwd_inputs(dev, b: int, n: int, seed: int):
 
 
 def check_k1_bwd(dev) -> dict:
-    """Phase 8: K1-bwd vs apply_rf_bwd_plain at the training and serving shapes."""
-    from singlehdr_tpu_torch.ops.cuda.apply_rf_cuda import apply_rf_bwd, apply_rf_bwd_plain
+    """Phase 8: K1-bwd vs apply_rf_bwd_plain at the training and serving
+    shapes, and on an all-saturated input (every x = 1.0) at the training
+    shape: gx bit-equal, grf within BWD_REL_TOL of the plain version in
+    float64 and bit-identical across launches (and with or without gx);
+    times warm and with the L2 flushed, beside the bound.  The report sums
+    the two shapes; the saturated case is printed only."""
+    from singlehdr_tpu_torch.ops.cuda.apply_rf_cuda import BWD_MAX_BINS, apply_rf_bwd, apply_rf_bwd_plain
 
     report = {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
               "bound_ms": 0.0, "ops_bound_ms": 0.0, "rf_only_ms": None, "rf_only_plain_ms": None}
-    for i, (b, n) in enumerate(BWD_SHAPES):
-        x, rf, g = k1_bwd_inputs(dev, b, n, SEED + i)
+    cases = [(f"[{b}, {n}]", k1_bwd_inputs(dev, b, n, SEED + i)) for i, (b, n) in enumerate(BWD_SHAPES)]
+    b, n = BWD_SHAPES[0]
+    x, rf, g = k1_bwd_inputs(dev, b, n, SEED + len(BWD_SHAPES))
+    cases.append((f"[{b}, {n}] every x = 1.0", (x.fill_(1.0), rf, g)))
+    for i, (label, (x, rf, g)) in enumerate(cases):
         gx, grf = apply_rf_bwd(x, rf, g, True, True)
-        pgx, pgrf = apply_rf_bwd_plain(x, rf, g, True, True)
+        _, grf_again = apply_rf_bwd(x, rf, g, True, True)
         only_gx, only_grf = apply_rf_bwd(x, rf, g, False, True)
+        gx_alone, no_grf = apply_rf_bwd(x, rf, g, True, False)
+        pgx, pgrf = apply_rf_bwd_plain(x, rf, g, True, True)
         # the curve gradient sums ~n/5 terms into the saturated bin; both f32
-        # versions round that sum in their own atomic order, so grf is held to
-        # the plain version evaluated in float64
+        # versions round that sum in their own order, so grf is held to the
+        # plain version evaluated in float64
         _, ref = apply_rf_bwd_plain(x.double(), rf.double(), g.double(), False, True)
         torch.cuda.synchronize()
-        if not torch.equal(gx, pgx):
-            raise AssertionError(f"apply_rf_bwd [{b}, {n}]: gx not bit-equal "
+        if not (torch.equal(gx, pgx) and torch.equal(gx_alone, pgx)):
+            raise AssertionError(f"apply_rf_bwd {label}: gx not bit-equal "
                                  f"(max err {(gx - pgx).abs().max().item():.3e})")
-        if only_gx is not None:
-            raise AssertionError("apply_rf_bwd: gx produced when only rf needs a gradient")
+        if only_gx is not None or no_grf is not None:
+            raise AssertionError("apply_rf_bwd: a gradient produced that was not asked for")
         scale = ref.abs().max().item()
         if not (scale > 0 and torch.isfinite(grf).all()):
-            raise AssertionError(f"apply_rf_bwd [{b}, {n}]: bad curve gradient")
-        abs_err = max((grf - ref).abs().max().item(), (only_grf - ref).abs().max().item())
+            raise AssertionError(f"apply_rf_bwd {label}: bad curve gradient")
+        if not (torch.equal(grf, grf_again) and torch.equal(grf, only_grf)):
+            raise AssertionError(f"apply_rf_bwd {label}: grf differs between launches on the same "
+                                 f"input (max {(grf - grf_again).abs().max().item():.3e}, grf only "
+                                 f"{(grf - only_grf).abs().max().item():.3e})")
+        abs_err = (grf - ref).abs().max().item()
         rel_err = abs_err / scale
         plain_rel = (pgrf - ref).abs().max().item() / scale
         if not rel_err <= BWD_REL_TOL:
-            raise AssertionError(f"apply_rf_bwd [{b}, {n}]: grf rel err {rel_err:.3e} > {BWD_REL_TOL}")
+            raise AssertionError(f"apply_rf_bwd {label}: grf rel err {rel_err:.3e} > {BWD_REL_TOL}")
         ms = device_ms(lambda: apply_rf_bwd(x, rf, g, True, True))
+        cold_ms = cold_l2_ms(lambda: apply_rf_bwd(x, rf, g, True, True))
         plain_ms = device_ms(lambda: apply_rf_bwd_plain(x, rf, g, True, True), 5)
         rf_ms = device_ms(lambda: apply_rf_bwd(x, rf, g, False, True))
+        rf_cold_ms = cold_l2_ms(lambda: apply_rf_bwd(x, rf, g, False, True))
         rf_plain_ms = device_ms(lambda: apply_rf_bwd_plain(x, rf, g, False, True), 5)
-        lib_grf_rel, lib_gx_rel, kinks = k1_bwd_library_error(x, rf, g, pgx, ref)
-        grid = rf_grid(x)
-        lib_ms = device_ms(lambda: apply_rf_bwd_library(rf, grid, g), 5)
-        report["max_abs_err"] = max(report["max_abs_err"], abs_err)
-        report["max_rel_err"] = max(report["max_rel_err"], rel_err)
-        report["ms"] += ms
-        report["plain_ms"] += plain_ms
-        report["library_ms"] += lib_ms
-        moved = nbytes((x, rf, g, pgx, pgrf))
-        bound_ms, _, _ = bound(0.0, moved)
-        report["bound_ms"] += bound_ms
-        if i == 0:  # the joint step's case: x = ldr needs no gradient
-            report["rf_only_ms"], report["rf_only_plain_ms"] = rf_ms, rf_plain_ms
-        print(f"  apply_rf_bwd [{b}, {n}]: gx bit-equal; grf vs float64 plain: max_abs_err {abs_err:.3e} "
-              f"rel {rel_err:.3e} (f32 plain: rel {plain_rel:.3e}; max|grf| {scale:.1f}); kernel {ms:.3f} ms plain {plain_ms:.3f} ms; "
-              f"grf only: kernel {rf_ms:.3f} ms plain {rf_plain_ms:.3f} ms; bound {bound_ms:.4f} ms "
-              f"(bytes: {moved / 1e6:.1f} MB), share {bound_ms / ms:.1%}; library (grid_sample's "
-              f"backward) {lib_ms:.3f} ms, grf rel {lib_grf_rel:.3e}, gx rel {lib_gx_rel:.3e} "
-              f"off {kinks} kink pixels", flush=True)
+        bound_ms, _, _ = bound(0.0, nbytes((x, rf, g, pgx, pgrf)))
+        rf_bound_ms, _, _ = bound(0.0, nbytes((x, rf, g, pgrf)))  # 8 bytes a pixel
+        library = ""
+        if i < len(BWD_SHAPES):
+            # every pixel of the saturated case sits on a kink of the lerp,
+            # where grid_sample's backward takes the other one-sided gx
+            lib_grf_rel, lib_gx_rel, kinks = k1_bwd_library_error(x, rf, g, pgx, ref)
+            grid = rf_grid(x)
+            lib_ms = device_ms(lambda: apply_rf_bwd_library(rf, grid, g), 5)
+            library = (f"; library (grid_sample's backward) {lib_ms:.3f} ms, grf rel {lib_grf_rel:.3e}, "
+                       f"gx rel {lib_gx_rel:.3e} off {kinks} kink pixels")
+            report["max_abs_err"] = max(report["max_abs_err"], abs_err)
+            report["max_rel_err"] = max(report["max_rel_err"], rel_err)
+            report["ms"] += ms
+            report["plain_ms"] += plain_ms
+            report["library_ms"] += lib_ms
+            report["bound_ms"] += bound_ms
+            if i == 0:  # the joint step's case: x = ldr needs no gradient
+                report["rf_only_ms"], report["rf_only_plain_ms"] = rf_ms, rf_plain_ms
+        print(f"  apply_rf_bwd {label}: gx bit-equal; grf the same bits on 3 launches; grf vs float64 "
+              f"plain: max_abs_err {abs_err:.3e} rel {rel_err:.3e} (f32 plain: rel {plain_rel:.3e}; "
+              f"max|grf| {scale:.1f}); gx+grf: kernel {ms:.4f} ms, L2 flushed {cold_ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms (bytes), share {bound_ms / ms:.1%} "
+              f"(flushed {bound_ms / cold_ms:.1%}); grf only: kernel {rf_ms:.4f} ms, flushed "
+              f"{rf_cold_ms:.4f} ms, plain {rf_plain_ms:.3f} ms, bound {rf_bound_ms:.4f} ms, share "
+              f"{rf_bound_ms / rf_ms:.1%} (flushed {rf_bound_ms / rf_cold_ms:.1%}){library}", flush=True)
+    # a curve longer than the kernel's shared-memory plan raises, on the card
+    x = torch.zeros(1, 64, device=dev)
+    try:
+        apply_rf_bwd(x, torch.zeros(1, BWD_MAX_BINS + 1, device=dev), x, True, True)
+    except ValueError as e:
+        print(f"  k = {BWD_MAX_BINS + 1} raises: {e}", flush=True)
+    else:
+        raise AssertionError(f"apply_rf_bwd took a curve of {BWD_MAX_BINS + 1} samples")
     return report
 
 

@@ -11,9 +11,14 @@ the kernel rounds every operation as the plain version does (no FMA).
 
 Backward (K1-bwd): replaces ``_core_bwd`` / ``_bwd_kernel`` of the same file,
 which scattered the curve gradient through one-hot MXU contractions.  Here
-each block accumulates its pixels' lerp weights into a shared 1024-bin array
-and flushes it with one global atomic add per bin.  ``gx`` is bit-identical
-to ``apply_rf_bwd_plain``; ``grf`` differs by the order of float atomics.
+it streams x and g on the forward's grid and block -> pixel map; each warp
+adds its pixels' lerp weights into its own k-bin histogram in shared memory,
+the lanes of one bin summed first, so that no two lanes add to one bin at
+once and the bins need no atomics (pixels with i0 == i1, in bins 0 and k - 1,
+are summed in registers).  Each block stores its warps' sum as one row of a
+``[b, bps, k]`` scratch, and a second launch sums the rows in a fixed order
+into ``grf``.  ``gx`` is bit-identical to ``apply_rf_bwd_plain``; ``grf``
+sums in another, fixed order, so it is bit-identical from run to run.
 
 ``apply_rf`` is differentiable (``ApplyRf``): a CPU tensor takes the plain
 versions, a CUDA tensor launches K1 and, under autograd, K1-bwd, or raises.
@@ -33,6 +38,9 @@ from singlehdr_tpu_torch.ops.cuda._check import count_launch, cuda_f32, ptr, req
 THREADS = 256     # csrc/apply_rf.cu kThreads
 BLOCKS_PER_SM = 4  # K1's grid: about this many blocks on each SM, over all samples
 MIN_PIXELS_PER_BLOCK = THREADS * 16
+# csrc/apply_rf.cu kBwdMaxBins: K1-bwd keeps 8 warp histograms, the curve and
+# 8 x k tag bytes in shared memory
+BWD_MAX_BINS = 4096
 
 
 def blocks_per_sample(b: int, n: int, sms: int) -> int:
@@ -119,23 +127,32 @@ def _apply_rf_forward(x: torch.Tensor, rf: torch.Tensor) -> torch.Tensor:
 
 
 def apply_rf_bwd(x, rf, g, need_x: bool, need_rf: bool):
-    """K1-bwd wrapper: plain version on the CPU, the CUDA kernel on the GPU.
-    Returns (gx | None, grf | None); an unwanted gradient is not allocated."""
+    """K1-bwd wrapper: plain version on the CPU, the CUDA kernels on the GPU
+    (the streaming kernel, then the sum of its per-block rows when grf is
+    wanted; one launch count).  Returns (gx | None, grf | None); an unwanted
+    gradient is not allocated."""
     if x.device.type == "cpu":
         return apply_rf_bwd_plain(x, rf, g, need_x, need_rf)
     b, k = _check_launch("apply_rf_bwd", x, rf)
     require(g.device == x.device and g.dtype == torch.float32 and g.is_contiguous()
             and g.shape == x.shape,
             f"apply_rf_bwd: grad_output must be contiguous float32 {tuple(x.shape)} on {x.device}")
+    require(k <= BWD_MAX_BINS,
+            f"apply_rf_bwd: the kernel holds curves of at most {BWD_MAX_BINS} samples, got {k}")
     gx = torch.empty_like(x) if need_x else None
-    grf = torch.zeros_like(rf) if need_rf else None
-    if not (need_x or need_rf) or x.numel() == 0:
+    grf = torch.empty_like(rf) if need_rf else None
+    if not (need_x or need_rf):
         return gx, grf
+    if x.numel() == 0:
+        return gx, None if grf is None else grf.zero_()
+    n = x.numel() // b
+    bps = blocks_per_sample(b, n, _sm_count(x.device.index))
+    partial = torch.empty(b, bps, k, device=x.device) if need_rf else None
     with torch.cuda.device(x.device):
         _build.call(
             "shdr_apply_rf_bwd_f32", ptr(x), ptr(rf), ptr(g),
             None if gx is None else ptr(gx), None if grf is None else ptr(grf),
-            b, x.numel() // b, k, stream(x.device),
+            None if partial is None else ptr(partial), b, n, k, bps, stream(x.device),
         )
     count_launch(apply_rf_bwd)
     return gx, grf

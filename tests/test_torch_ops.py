@@ -36,6 +36,9 @@ from singlehdr_tpu_torch.ops.cuda.enc_pool_cuda import encoder_stage2_plain
 from singlehdr_tpu_torch.ops.cuda.lin_stem_cuda import lin_feature_stem_plain
 from singlehdr_tpu_torch.ops.cuda.unet_stage_cuda import unet_stage2_plain
 
+from test_torch_apply_rf_bwd import VEC as K1_VEC
+from test_torch_apply_rf_bwd import k1_block_steps
+
 ATOL = 2e-5  # tests/test_golden.py
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -93,35 +96,14 @@ def test_apply_rf_bit_equal_to_jax_xla_and_pallas_interpret():
 
 
 def _k1_writes(b, n, bps, x_off, out_off):
-    """Write count of every pixel in one K1 launch: the kernel's block ->
-    pixel map (csrc/apply_rf.cu apply_rf_kernel) with x and out starting
-    x_off and out_off floats past a 16-byte boundary."""
-    threads, vec = apply_rf_cuda.THREADS, 4
+    """Write count of every pixel in one K1 launch: the block -> pixel map of
+    csrc/apply_rf.cu, which K1 and K1-bwd share (``k1_block_steps``), with x
+    and out starting x_off and out_off floats past a 16-byte boundary."""
     counts = np.zeros((b, n), np.int64)
-    tid = np.arange(threads)
     for s in range(b):
-        xa, oa = 4 * (x_off + s * n), 4 * (out_off + s * n)  # byte addresses mod 16
-        if (xa ^ oa) & 15:  # scalar walk of each block's run
-            per = -(-n // bps)
-            for bi in range(bps):
-                p = bi * per + tid[:, None] + threads * np.arange(-(-per // threads) + 1)
-                np.add.at(counts[s], p[p < min(n, (bi + 1) * per)], 1)
-            continue
-        head = min(n, ((16 - xa % 16) % 16) >> 2)
-        units = (n - head) >> 2
-        per = -(-units // bps)
         for bi in range(bps):
-            u0, u1 = bi * per, min(units, bi * per + per)
-            rounds = -(-max(u1 - u0, 0) // (vec * threads)) + 1
-            q0 = u0 + tid[:, None] + vec * threads * np.arange(rounds)
-            q = (q0[..., None] + threads * np.arange(vec))[q0 < u1]
-            q = q[q < u1]
-            np.add.at(counts[s], (head + 4 * q[:, None] + np.arange(4)).reshape(-1), 1)
-            if bi == 0:
-                counts[s, tid[tid < head]] += 1
-            if bi == bps - 1:
-                tail0 = head + 4 * units
-                counts[s, tail0 + tid[tail0 + tid < n]] += 1
+            for step in k1_block_steps(n, bps, bi, (x_off + s * n, out_off + s * n), K1_VEC):
+                np.add.at(counts[s], step[step >= 0], 1)
     return counts
 
 
