@@ -1,8 +1,9 @@
-"""GPU smoke run of the PyTorch port: builds the five CUDA kernels, holds each
-against its plain PyTorch version at the serving and training shapes, serves
-a few requests through the port's HTTP server and trains the joint
-configuration through the ``joint_train`` CLI, both at the full published
-widths, and checks each path against the CPU plain path.
+"""GPU smoke run of the PyTorch port: builds the five CUDA kernels (K2-K4 in
+f32 and bf16), holds each against its plain PyTorch version at the serving
+and training shapes, serves a few requests through the port's HTTP server
+and trains the joint configuration through the ``joint_train`` CLI, both at
+the full published widths, in f32 and in the JAX package's bf16 compute
+dtype, and checks each path against the CPU plain path.
 
   python3 chip_smoke.py          (from the root of a checkout, one CUDA card)
 
@@ -10,21 +11,32 @@ Phases (each prints its own lines; any failure exits non-zero):
   1 device   card name and power limit (nvidia-smi); TF32 off, true f32
   2 build    nvcc build of singlehdr_tpu_torch/csrc into build/kernels/ (one
              nvcc per source, in parallel); K2/K4's conv kernel and K3's
-             kernel hold tensor-core instructions in their SASS (K3: HGMMA)
+             kernel hold tensor-core instructions in their SASS: TF32 in the
+             f32 instantiations, BF16 HGMMA (wgmma) and, for the 16-channel
+             stems, BF16 HMMA (mma.sync) in the bf16 ones; K3 HGMMA in both
   3 kernels  K1..K4 vs plain at batch 4, 576x576 (512 + the 32 px pad), K3 at
              an odd [1, 3, 37, 53] and K4 at an odd [1, 64, 37, 53] (the ceil
-             edge of its SAME pool): K1 bit-equal; K2..K4 max|err| /
-             max|plain| <= 1e-4; each case's kernel ms, plain ms, bound ms and
-             share of the bound; the library routes of K1 (grid_sample) and
-             K3 (cuDNN's f32 conv over the stack built beforehand) held to the
-             plain versions and timed; K1 and grid_sample also timed with the
-             L2 flushed before each call
+             edge of its SAME pool), in f32 and (K2-K4) in bf16: K1 bit-equal;
+             f32 K2..K4 max|err| / max|plain| <= 1e-4; bf16 K2..K4 within 4
+             bf16 ulps of max|plain| and >= 95 % of the outputs equal (the two
+             sum the same exact products in another order); each case's
+             kernel ms, plain ms, bound ms and share of the bound; the library
+             routes (grid_sample for K1; cuDNN's convs + the pool, f32 or bf16,
+             for K2 and K4; cuDNN's stride-2 conv over the stack built
+             beforehand for K3) held to the plain versions and timed; K1,
+             grid_sample and the bf16 K2-K4 also timed with the L2 flushed
+             before each call
   4 serving  seeded ReverseCameraPipeline on the card behind make_server;
-             4 client threads POST 8 JPEG 512x512 images
-  5 parity   one 512x512 image on the card vs the CPU plain path
-  6 launches every kernel counted during phase 4, per batch K1 x1, K2 x6,
-             K3 x1, K4 x2
-  7 timing   p50 latency and img/s at batch 1 and 8, per-net times at batch 8
+             4 client threads POST 8 JPEG 512x512 images; f32, then bf16
+             (build_pipeline(dtype=torch.bfloat16))
+  5 parity   one 512x512 image on the card vs the CPU plain path: f32 within
+             1e-4 of max|ref|; bf16 PSNR >= 40 dB against the CPU f32 output;
+             bf16 at 1 x 128^2 vs the CPU bf16 plain path within 4 % of max|ref|
+  6 launches every kernel counted during phase 4, by dtype, per batch K1 x1
+             (f32), K2 x6, K3 x1, K4 x2 in the pipeline's dtype and none in
+             the other
+  7 timing   p50 latency and img/s at batch 1 and 8, per-net times at batch
+             8, for each dtype
   8 K1-bwd   vs plain at [16, 3*256^2] and [4, 3*576^2], and with every
              x = 1.0 at [16, 3*256^2]: gx bit-equal (also gx alone), grf
              max|err| / max|plain| <= 1e-5 against the plain version in
@@ -34,21 +46,24 @@ Phases (each prints its own lines; any failure exits non-zero):
              route (grid_sample's backward) held to the plain version and
              timed; a curve longer than the kernel's plan raises
   9 training cli.joint_train.run at batch 16, 256^2 on synthetic .hdr files:
-             6 steps, then a resume to 8; K1-bwd once per step, K2..K4 never;
-             one cli.train --lin step
+             6 steps, then a resume to 8; the same CLI with --dtype bfloat16
+             for 3 steps; K1-bwd once per step, K2..K4 never; one cli.train
+             --lin step
   10 parity  one joint step, card vs CPU, at 2 x 64^2, every gradient tensor
              within 2e-3 of its own max + 1e-3 of its net's max, and planted
              faults (a zeroed or sign-flipped gradient) flagged by that bound;
+             the same step in bf16, each net's gradients held to the CPU f32
+             ones as the CPU bf16 step's are (distance, cosine; deq within
+             3 % of its norm), a zeroed or sign-flipped net's failing;
              one finetune step at 4 x 256^2 on the card (K1-bwd's gx branch)
   11 timing  joint step at batch 16, 256^2: forward + loss, backward, Adam;
-             K1-bwd's share of the step
-The second-to-last line is the kernels' JSON record (with each kernel's
-launches per serving batch and per training step, its bound, and the library
-route's time where PyTorch computes the same function: grid_sample for K1,
-its backward for K1-bwd, cuDNN's convs + the pool for K2 and K4, cuDNN's
-stride-2 conv + ReLU over the 93-channel stack built beforehand for K3), the
-last the result.  K2 and K4 count one launch a stage call, which
-makes two launches of the conv kernel (``kernel_launches_per_stage``).
+             K1-bwd's share of the step; f32, then bf16
+The second-to-last line is the kernels' JSON record, one entry a (kernel,
+dtype): K2-K4's bf16 kernels as ``unet_stage2_bf16``, ``lin_feature_stem_bf16``
+and ``encoder_stage2_bf16`` (with each kernel's launches per serving batch and
+per training step, its bound, and the library route's time), the last the
+result.  K2 and K4 count one launch a stage call, which makes two launches
+of the conv kernel (``kernel_launches_per_stage``).
 
 Kernel, plain and library times (phases 3 and 8) are device times of
 back-to-back calls with the host kept ahead (``device_ms``): K1 runs for less
@@ -57,9 +72,12 @@ instead.  Per-net times (phase 7) are CUDA-event times of whole nets.
 
 A kernel's bound is the least time the card could take for its work: the
 larger of its bytes (each input read once, each output written once) over
-3.35 TB/s and its FLOP over 165 TFLOP/s, the rate of f32-accurate products on
-the tensor cores (three TF32 products each, 495 / 3); the 67 TFLOP/s of f32 on
-the CUDA cores is printed beside it.  Peaks: NVIDIA's H100 SXM data sheet.
+3.35 TB/s and its FLOP over the tensor cores' rate for its products: 165
+TFLOP/s for f32-accurate products (three TF32 products each, 495 / 3; the 67
+TFLOP/s of f32 on the CUDA cores is printed beside it) and 989 TFLOP/s for
+bf16 products (dense).  For the bf16 K2/K4 the bound of the two launches as
+built (conv1's activation written and read back) is printed beside it.
+Peaks: NVIDIA's H100 SXM data sheet.
 """
 
 from __future__ import annotations
@@ -84,6 +102,17 @@ N_CLIENTS = 4
 KERNEL_BATCH = 4
 KERNEL_REL_TOL = 1e-4   # f32 sum order differs between the kernels and cuDNN
 PATH_REL_TOL = 1e-4     # the whole served path vs the CPU plain path (f32 sum order)
+# bf16 kernels vs their plain versions: both sum the same exact bf16 products
+# in f32, in another order, and round where the Pallas kernels round; an
+# output differs only where the two sums straddle a rounding boundary (one
+# ulp, and conv1's flips moving conv2's sum).  Bound: 4 bf16 ulps of
+# max|plain| (2^-6), with at least 95 % of the outputs bit-equal
+KERNEL_BF16_REL_TOL = 2.0 ** -6
+KERNEL_BF16_MIN_EQUAL = 0.95
+PATH_BF16_MIN_PSNR_DB = 40.0  # the card's bf16 hdr vs the CPU f32 path (peak max|ref|)
+PATH_BF16_HW = 128            # the card's bf16 path vs the CPU bf16 plain path, 1 x 128^2
+PATH_BF16_REL_TOL = 4e-2      # of max|ref|: cuDNN's and the CPU's bf16 convs round apart
+BF16_JOINT_STEPS = 3          # phase 9: joint steps of the --dtype bfloat16 run
 SEED = 0
 TRAIN_BATCH = 16        # the reference's joint configuration: batch 16 at 256^2
 TRAIN_HW = 256
@@ -102,6 +131,17 @@ STEP_LOSS_REL_TOL = 1e-4
 STEP_GRAD_OWN_TOL = 2e-3
 STEP_GRAD_NET_TOL = 1e-3
 STEP_STATS_REL_TOL = 1e-4
+# the bf16 joint step, per net (Frobenius over its gradients, relative to the
+# CPU f32 norm): bf16 rounding moves lin's and hal's gradients by about half
+# their norm on the CPU (tests/test_torch_bf16.py says why), and the card's
+# cuDNN sums round elsewhere, so the card is held to the CPU f32 gradients as
+# the CPU bf16 step is: distance <= 1.5 x the CPU bf16 step's + 0.02, cosine
+# >= the CPU bf16 step's - 0.2 and >= 0.5; deq (no batch norm, 0.007 on the
+# CPU) within 0.03
+BF16_STEP_NOISE_FACTOR = 1.5
+BF16_STEP_COS_SLACK, BF16_STEP_COS_MIN = 0.2, 0.5
+BF16_STEP_DEQ_TOL = 0.03
+BF16_STEP_LOSS_REL_TOL = 1e-3
 # tensors whose gradient, zeroed or sign-flipped on the card's side, the bound
 # must flag: small ones (BN scale and shift) and lin's dense head
 PLANTED_FAULTS = ("lin.crf_feature_net.stem_bn.weight", "lin.crf_feature_net.stem_bn.bias",
@@ -112,6 +152,7 @@ PER_BATCH = {"apply_rf": 1, "unet_stage2": 6, "lin_feature_stem": 1, "encoder_st
 HBM_BYTES_PER_S = 3.35e12
 SLEEP_CYCLES_PER_S = 2.0e9  # device_ms's lead: at least the SM clock (1.98 GHz at most)
 F32_TENSOR_FLOPS = 495e12 / 3   # 3xTF32
+BF16_TENSOR_FLOPS = 989e12      # dense bf16
 F32_SIMT_FLOPS = 67e12
 ODD_K4_SHAPE = (1, 64, 37, 53)  # hal enc2's widths at odd H, W
 ODD_K3_SHAPE = (1, 3, 37, 53)   # ragged tiles, odd SAME pads, REFLECT at every edge
@@ -214,7 +255,11 @@ def cold_l2_ms(fn, iters: int = 10) -> float:
 def check_tensor_core_sass() -> None:
     """Phase 2: K2/K4's conv kernel and K3's kernel run on the tensor cores:
     every conv instantiation's SASS (cuobjdump of the built library) holds
-    HMMA (mma.sync) or HGMMA (wgmma) instructions, and K3's holds HGMMA."""
+    HMMA (mma.sync) or HGMMA (wgmma) instructions, TF32 ones in the f32
+    instantiations and BF16 ones in the bf16 instantiations (template
+    argument ``Lb1``), with HGMMA in every bf16 one of 32 or 64 channels a
+    block and HMMA in the 16-channel stems; K3's kernel holds HGMMA in both
+    dtypes, of its own type."""
     from pathlib import Path
 
     from singlehdr_tpu_torch.ops.cuda import _build
@@ -222,28 +267,61 @@ def check_tensor_core_sass() -> None:
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(_build.build())], capture_output=True,
                           text=True, check=True).stdout
-    functions = sass.split("Function : ")[1:]
-    convs = [f for f in functions if "conv_gemm_kernel" in f.split()[0]]
-    counts = [(f.count(" HMMA."), f.count(" HGMMA.")) for f in convs]
-    per = [hmma + hgmma for hmma, hgmma in counts]
-    print(f"  conv_gemm_kernel: {len(convs)} instantiations; tensor-core instructions in SASS: "
-          f"HMMA {sum(c[0] for c in counts)}, HGMMA {sum(c[1] for c in counts)} "
-          f"(per instantiation {min(per, default=0)}..{max(per, default=0)})", flush=True)
-    if not convs or not min(per) > 0:
-        raise AssertionError("K2/K4's conv kernel has instantiations without tensor-core "
-                             "instructions in its SASS")
-    stems = [f for f in functions if "lin_stem_kernel" in f.split()[0]]
-    hgmma = sum(f.count(" HGMMA.") for f in stems)
-    print(f"  lin_stem_kernel: {len(stems)} function(s); HGMMA {hgmma}", flush=True)
-    if not stems or not hgmma > 0:
-        raise AssertionError("K3's kernel has no HGMMA (wgmma) instructions in its SASS")
+    functions = [(f.split()[0], f) for f in sass.split("Function : ")[1:]]
+
+    def mma(body: str, kind: str, precision: str) -> int:
+        """Tensor-core instructions of ``kind`` of this precision: BF16 ones
+        carry ``.BF16``; the f32 kernels' TF32 ones (``.TF32``) carry no BF16."""
+        lines = [ln for ln in body.splitlines() if f" {kind}." in ln]
+        if precision == "BF16":
+            return sum(".BF16" in ln for ln in lines)
+        return sum(".BF16" not in ln for ln in lines)
+
+    for kernel in ("conv_gemm_kernel", "lin_stem_kernel"):
+        for flag, precision in (("ILb0E", "TF32"), ("ILb1E", "BF16")):
+            insts = [(name, body) for name, body in functions if kernel in name and flag in name]
+            counts = [(mma(body, "HMMA", precision), mma(body, "HGMMA", precision), name)
+                      for name, body in insts]
+            print(f"  {kernel} {precision}: {len(insts)} instantiation(s); HMMA.{precision} "
+                  f"{sum(c[0] for c in counts)}, HGMMA.{precision} {sum(c[1] for c in counts)}",
+                  flush=True)
+            if not insts or not all(h + g > 0 for h, g, _ in counts):
+                raise AssertionError(f"{kernel}: a {precision} instantiation without {precision} "
+                                     "tensor-core instructions in its SASS")
+            for hmma, hgmma, name in counts:
+                stem = "ELi16ELNS" in name  # BN = 16: the mma.sync path
+                if kernel == "lin_stem_kernel" and not hgmma:
+                    raise AssertionError(f"K3 ({precision}) has no HGMMA in its SASS")
+                if kernel == "conv_gemm_kernel" and precision == "BF16" and not (
+                        hmma if stem else hgmma):
+                    raise AssertionError(f"{name}: no {'HMMA' if stem else 'HGMMA'}.BF16")
 
 
-def kernel_cases(pipe, dev):
+def kernel_cases(pipe, dev, dtype=torch.float32):
     """(kernel name, case label, wrapper args) at the main path's shapes, with
     the pipeline's own conv weights; inputs of a later stage are the plain
     outputs of the stage before it.  The seeded init has zero biases, so the
-    cases add seeded biases to exercise the kernels' bias path."""
+    cases add seeded biases to exercise the kernels' bias path.  For bf16 the
+    same cases of K2-K4 with x and the weights rounded to bf16 (the biases
+    stay f32), as a bf16 net hands them over."""
+    cases = _kernel_cases_f32(pipe, dev)
+    if dtype == torch.float32:
+        return cases
+    bf16 = []
+    for name, label, args in cases:
+        if name == "apply_rf":  # K1 is f32 in every compute dtype
+            continue
+        if name == "lin_feature_stem":
+            x, k7, b7 = args
+            args = (x.to(dtype), k7.to(dtype), b7)
+        else:
+            x, w1, b1, w2, b2 = args
+            args = (x.to(dtype), w1.to(dtype).contiguous(), b1, w2.to(dtype).contiguous(), b2)
+        bf16.append((name, label, args))
+    return bf16
+
+
+def _kernel_cases_f32(pipe, dev):
     from singlehdr_tpu_torch.ops import color
     from singlehdr_tpu_torch.ops.curves import monotonic_rf
     from singlehdr_tpu_torch.ops.cuda.enc_pool_cuda import encoder_stage2_plain
@@ -316,11 +394,40 @@ def kernel_flop(name: str, args) -> float:
     return 3.0 * args[0].numel()
 
 
-def bound(flop: float, moved: int) -> tuple:
-    """(bound ms, what sets it, the f32 CUDA-core bound ms)."""
-    ops_ms, bytes_ms = flop / F32_TENSOR_FLOPS * 1e3, moved / HBM_BYTES_PER_S * 1e3
+def bound(flop: float, moved: int, dtype=torch.float32) -> tuple:
+    """(bound ms, what sets it, the f32 CUDA-core bound ms) at the tensor
+    cores' rate for ``dtype``'s products."""
+    rate = BF16_TENSOR_FLOPS if dtype == torch.bfloat16 else F32_TENSOR_FLOPS
+    ops_ms, bytes_ms = flop / rate * 1e3, moved / HBM_BYTES_PER_S * 1e3
     return (max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes",
             max(flop / F32_SIMT_FLOPS * 1e3, bytes_ms))
+
+
+def two_launch_bound_ms(name: str, args, want, dtype) -> float:
+    """K2's and K4's bound as built, two launches a stage: each launch's
+    max(FLOP / rate, bytes / 3.35 TB/s), conv1's activation written by the
+    first and read by the second."""
+    x, w1, b1, w2, b2 = args
+    b, c, h, w = x.shape
+    f, _, k, _ = w1.shape
+    mid = b * f * h * w * x.element_size()
+    conv1 = bound(2.0 * b * h * w * f * k * k * c, nbytes((x, w1, b1)) + mid, dtype)[0]
+    conv2 = bound(2.0 * b * h * w * f * k * k * f, mid + nbytes((w2, b2)) + nbytes(want), dtype)[0]
+    return conv1 + conv2
+
+
+def conv_stage_library(name: str, x, w1, b1, w2, b2) -> tuple:
+    """K2's or K4's function as PyTorch calls in x's dtype (the library route
+    for bf16: cuDNN's bf16 convs, bias in bf16, and the pool, all in bf16)."""
+    F = torch.nn.functional
+    k = w1.shape[-1]
+    if name == "unet_stage2":
+        y = F.leaky_relu(F.conv2d(x, w1, b1.to(x.dtype), padding=k // 2), 0.1)
+        y = F.leaky_relu(F.conv2d(y, w2, b2.to(x.dtype), padding=k // 2), 0.1)
+        return F.avg_pool2d(y, 2), y
+    y = F.relu(F.conv2d(x, w1, b1.to(x.dtype), padding=1))
+    y = F.relu(F.conv2d(y, w2, b2.to(x.dtype), padding=1))
+    return F.max_pool2d(y, 2, 2, ceil_mode=True), y
 
 
 def rf_grid(x: torch.Tensor) -> torch.Tensor:
@@ -390,21 +497,27 @@ def lin_stem_features(x: torch.Tensor) -> torch.Tensor:
 
 
 def lin_stem_library(feats: torch.Tensor, k7: torch.Tensor, b7: torch.Tensor) -> torch.Tensor:
-    """K3's conv as one PyTorch call on the prebuilt stack: cuDNN's f32
-    stride-2 conv (TF32 off in phase 1), then ReLU."""
-    return torch.relu(torch.nn.functional.conv2d(feats, k7, b7, stride=2))
+    """K3's conv as one PyTorch call on the prebuilt stack: cuDNN's stride-2
+    conv in the stack's dtype (f32 with TF32 off in phase 1, or bf16 with the
+    bias in bf16), then ReLU."""
+    return torch.relu(torch.nn.functional.conv2d(feats, k7, b7.to(feats.dtype), stride=2))
 
 
 def k3_library_error(feats, k7, b7, want: torch.Tensor) -> float:
-    """max|err| / max|plain| of K3's library route against K3's plain output."""
+    """max|err| / max|plain| of K3's library route against K3's plain output
+    (f32 within LIBRARY_REL_TOL; bf16 within KERNEL_BF16_REL_TOL: cuDNN rounds
+    its bf16 output apart from the plain version's f32 sum)."""
     got = lin_stem_library(feats, k7, b7)
-    rel = ((got - want).abs().max() / want.abs().max()).item()
-    if not rel <= LIBRARY_REL_TOL:
+    rel = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+    tol = KERNEL_BF16_REL_TOL if want.dtype == torch.bfloat16 else LIBRARY_REL_TOL
+    if not rel <= tol:
         raise AssertionError(f"the conv over the prebuilt stack is not K3's function: rel {rel:.3e}")
     return rel
 
 
 def check_kernels(pipe, dev) -> dict:
+    """Phase 3, both dtypes: the report is keyed by kernel name, with ``_bf16``
+    after the bf16 kernels' names."""
     from singlehdr_tpu_torch.ops.cuda import apply_rf_cuda, enc_pool_cuda, lin_stem_cuda, unet_stage_cuda
 
     plain = {
@@ -413,64 +526,93 @@ def check_kernels(pipe, dev) -> dict:
         "lin_feature_stem": (lin_stem_cuda.lin_feature_stem, lin_stem_cuda.lin_feature_stem_plain),
         "encoder_stage2": (enc_pool_cuda.encoder_stage2, enc_pool_cuda.encoder_stage2_plain),
     }
-    report = {n: {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                  "bound_ms": 0.0, "ops_bound_ms": 0.0, "simt_bound_ms": 0.0,
-                  "library_ms": 0.0} for n in plain}
-    with torch.inference_mode():
-        for name, label, args in kernel_cases(pipe, dev):
-            kernel, ref = plain[name]
-            got, want = kernel(*args), ref(*args)
-            torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            for a, w in zip(got, want):
-                if a.shape != w.shape:
-                    raise AssertionError(f"{name} {label}: shape {tuple(a.shape)} != {tuple(w.shape)}")
-                if not torch.isfinite(a).all():
-                    raise AssertionError(f"{name} {label}: non-finite output")
-                if not w.abs().max() > 0:
-                    raise AssertionError(f"{name} {label}: all-zero reference, nothing compared")
-            abs_err = max((a - w).abs().max().item() for a, w in zip(got, want))
-            rel_err = max(((a - w).abs().max() / w.abs().max()).item() for a, w in zip(got, want))
-            if name == "apply_rf":
-                if not all(torch.equal(a, w) for a, w in zip(got, want)):
-                    raise AssertionError(f"apply_rf {label}: not bit-equal (max err {abs_err})")
-            elif not rel_err <= KERNEL_REL_TOL:
-                raise AssertionError(f"{name} {label}: rel err {rel_err:.3e} > {KERNEL_REL_TOL}")
-            ms, plain_ms = device_ms(lambda: kernel(*args)), device_ms(lambda: ref(*args), 5)
-            library = ""
-            if name == "apply_rf":  # grid_sample, timed on a grid built beforehand
-                lib_rel = k1_library_error(*args, want[0])
-                grid = rf_grid(args[0])
-                lib_ms = device_ms(lambda: apply_rf_library(args[1], grid))
-                library = (f"  library (grid_sample) {lib_ms:.4f} ms, rel {lib_rel:.3e}; L2 flushed "
-                           f"before each call: kernel {cold_l2_ms(lambda: kernel(*args)):.4f} ms, "
-                           f"grid_sample {cold_l2_ms(lambda: apply_rf_library(args[1], grid)):.4f} ms")
-            elif name == "lin_feature_stem":  # cuDNN's conv over the stack built beforehand
-                feats = lin_stem_features(args[0])
-                lib_rel = k3_library_error(feats, *args[1:], want[0])
-                lib_ms = device_ms(lambda: lin_stem_library(feats, *args[1:]), 5)
-                library = f"  library (cuDNN conv on the prebuilt stack) {lib_ms:.3f} ms, rel {lib_rel:.3e}"
-                del feats
-            else:
-                lib_ms = plain_ms  # K2, K4: cuDNN's convs + the pool
-            flop, moved = kernel_flop(name, args), nbytes(args) + nbytes(want)
-            bound_ms, bound_by, simt_ms = bound(flop, moved)
-            r = report[name]
-            r["max_abs_err"] = max(r["max_abs_err"], abs_err)
-            r["max_rel_err"] = max(r["max_rel_err"], rel_err)
-            r["ms"] += ms
-            r["plain_ms"] += plain_ms
-            r["library_ms"] += lib_ms
-            r["bound_ms"] += bound_ms
-            r["ops_bound_ms"] += bound_ms if bound_by == "operations" else 0.0
-            r["simt_bound_ms"] += simt_ms
-            print(f"  {name:17s} {label:36s} max_abs_err {abs_err:.3e} rel {rel_err:.3e} "
-                  f"kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  bound {bound_ms:.4f} ms "
-                  f"({bound_by}; f32 CUDA cores {simt_ms:.3f})  share {bound_ms / ms:.1%}  "
-                  f"{flop / 1e9:.1f} GFLOP {moved / 1e6:.1f} MB  {flop / ms / 1e9:.1f} TFLOP/s"
-                  f"{library}", flush=True)
-    torch.cuda.synchronize()
+    report = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        suffix = "_bf16" if dtype == torch.bfloat16 else ""
+        with torch.inference_mode():
+            for name, label, args in kernel_cases(pipe, dev, dtype):
+                kernel, ref = plain[name]
+                got, want = kernel(*args), ref(*args)
+                torch.cuda.synchronize()
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                for a, w in zip(got, want):
+                    if a.shape != w.shape or a.dtype != w.dtype:
+                        raise AssertionError(f"{name} {label}: {tuple(a.shape)} {a.dtype} != "
+                                             f"{tuple(w.shape)} {w.dtype}")
+                    if not torch.isfinite(a).all():
+                        raise AssertionError(f"{name} {label}: non-finite output")
+                    if not w.abs().max() > 0:
+                        raise AssertionError(f"{name} {label}: all-zero reference, nothing compared")
+                abs_err = max((a.float() - w.float()).abs().max().item() for a, w in zip(got, want))
+                rel_err = max(((a.float() - w.float()).abs().max() / w.float().abs().max()).item()
+                              for a, w in zip(got, want))
+                equal = min((a == w).float().mean().item() for a, w in zip(got, want))
+                if name == "apply_rf":
+                    if not all(torch.equal(a, w) for a, w in zip(got, want)):
+                        raise AssertionError(f"apply_rf {label}: not bit-equal (max err {abs_err})")
+                elif dtype == torch.bfloat16:
+                    if not (rel_err <= KERNEL_BF16_REL_TOL and equal >= KERNEL_BF16_MIN_EQUAL):
+                        raise AssertionError(f"{name} bf16 {label}: rel err {rel_err:.3e} (bound "
+                                             f"{KERNEL_BF16_REL_TOL:.3e}), {equal:.2%} equal (bound "
+                                             f"{KERNEL_BF16_MIN_EQUAL:.0%})")
+                elif not rel_err <= KERNEL_REL_TOL:
+                    raise AssertionError(f"{name} {label}: rel err {rel_err:.3e} > {KERNEL_REL_TOL}")
+                ms, plain_ms = device_ms(lambda: kernel(*args)), device_ms(lambda: ref(*args), 5)
+                library = ""
+                if name == "apply_rf":  # grid_sample, timed on a grid built beforehand
+                    lib_rel = k1_library_error(*args, want[0])
+                    grid = rf_grid(args[0])
+                    lib_ms = device_ms(lambda: apply_rf_library(args[1], grid))
+                    library = (f"  library (grid_sample) {lib_ms:.4f} ms, rel {lib_rel:.3e}; L2 flushed "
+                               f"before each call: kernel {cold_l2_ms(lambda: kernel(*args)):.4f} ms, "
+                               f"grid_sample {cold_l2_ms(lambda: apply_rf_library(args[1], grid)):.4f} ms")
+                elif name == "lin_feature_stem":  # cuDNN's conv over the stack built beforehand
+                    feats = lin_stem_features(args[0])
+                    lib_rel = k3_library_error(feats, *args[1:], want[0])
+                    lib_ms = device_ms(lambda: lin_stem_library(feats, *args[1:]), 5)
+                    library = (f"  library (cuDNN conv on the prebuilt stack) {lib_ms:.3f} ms, "
+                               f"rel {lib_rel:.3e}")
+                    del feats
+                elif dtype == torch.float32:
+                    lib_ms = plain_ms  # K2, K4: the plain version is cuDNN's f32 convs + the pool
+                else:  # K2, K4 in bf16: cuDNN's bf16 convs + the pool, in bf16
+                    lib = conv_stage_library(name, *args)
+                    lib_rel = max(((a.float() - w.float()).abs().max() / w.float().abs().max()).item()
+                                  for a, w in zip(lib, want))
+                    if not lib_rel <= KERNEL_BF16_REL_TOL:
+                        raise AssertionError(f"{name} bf16 {label}: the library route is not its "
+                                             f"function: rel {lib_rel:.3e}")
+                    lib_ms = device_ms(lambda: conv_stage_library(name, *args), 5)
+                    library = f"  library (cuDNN bf16 convs + pool) {lib_ms:.3f} ms, rel {lib_rel:.3e}"
+                flop, moved = kernel_flop(name, args), nbytes(args) + nbytes(want)
+                bound_ms, bound_by, simt_ms = bound(flop, moved, dtype)
+                if dtype == torch.bfloat16 and name != "lin_feature_stem":
+                    built_ms = two_launch_bound_ms(name, args, want, dtype)
+                    other = f"as built, two launches {built_ms:.4f}"
+                else:
+                    other = f"f32 CUDA cores {simt_ms:.3f}"
+                if dtype == torch.bfloat16:
+                    library += f"; L2 flushed before each call: kernel {cold_l2_ms(lambda: kernel(*args)):.4f} ms"
+                r = report.setdefault(name + suffix, {
+                    "dtype": str(dtype).removeprefix("torch."), "max_abs_err": 0.0, "max_rel_err": 0.0,
+                    "min_equal": 1.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_bound_ms": 0.0,
+                    "simt_bound_ms": 0.0, "library_ms": 0.0})
+                r["max_abs_err"] = max(r["max_abs_err"], abs_err)
+                r["max_rel_err"] = max(r["max_rel_err"], rel_err)
+                r["min_equal"] = min(r["min_equal"], equal)
+                r["ms"] += ms
+                r["plain_ms"] += plain_ms
+                r["library_ms"] += lib_ms
+                r["bound_ms"] += bound_ms
+                r["ops_bound_ms"] += bound_ms if bound_by == "operations" else 0.0
+                r["simt_bound_ms"] += simt_ms
+                print(f"  {name + suffix:22s} {label:36s} max_abs_err {abs_err:.3e} rel {rel_err:.3e} "
+                      f"equal {equal:.2%} kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  bound "
+                      f"{bound_ms:.4f} ms ({bound_by}; {other})  share {bound_ms / ms:.1%}  "
+                      f"{flop / 1e9:.1f} GFLOP {moved / 1e6:.1f} MB  {flop / ms / 1e9:.1f} TFLOP/s"
+                      f"{library}", flush=True)
+        torch.cuda.synchronize()
     return report
 
 
@@ -498,7 +640,8 @@ def decode_hdr(body: bytes) -> np.ndarray:
 
 
 def serve_requests(predictor) -> tuple:
-    """Phase 4: POST N_REQUESTS JPEGs from N_CLIENTS threads; returns (stats, launches)."""
+    """Phase 4: POST N_REQUESTS JPEGs from N_CLIENTS threads; returns (stats,
+    launches by kernel and dtype)."""
     from singlehdr_tpu_torch.ops import cuda as kernels
     from singlehdr_tpu_torch.serve import make_server
 
@@ -528,7 +671,7 @@ def serve_requests(predictor) -> tuple:
         for c in clients:
             c.join(timeout=600)
         torch.cuda.synchronize()
-        launches = kernels.launch_counts()
+        launches = kernels.launch_counts_by_dtype()
         with urllib.request.urlopen(url + "/stats", timeout=60) as r:
             stats = json.loads(r.read())
     finally:
@@ -551,18 +694,24 @@ def serve_requests(predictor) -> tuple:
     return stats, launches
 
 
-def check_launches(stats: dict, launches: dict) -> None:
+def check_launches(stats: dict, launches: dict, dtype) -> None:
+    """Phase 6: per batch K1 x1 in f32 and K2 x6, K3 x1, K4 x2 in the
+    pipeline's compute dtype, none of them in the other dtype."""
     batches = stats["device_batches"]
-    print(f"  launches {launches} over {batches} device batches", flush=True)
+    name_of = str(dtype).removeprefix("torch.")
+    print(f"  {name_of} pipeline: launches {launches} over {batches} device batches", flush=True)
     for name, per in PER_BATCH.items():
-        if launches[name] != per * batches:
-            raise AssertionError(
-                f"{name}: {launches[name]} launches, expected {per} x {batches} batches"
-            )
+        want = "float32" if name == "apply_rf" else name_of
+        counts = dict(launches[name])
+        if counts.pop(want, 0) != per * batches or any(counts.values()):
+            raise AssertionError(f"{name}: launches {launches[name]}, expected {per} x {batches} "
+                                 f"batches in {want} and none in another dtype")
 
 
-def path_parity(pipe) -> None:
-    """Phase 5: the served output of one image on the card vs the CPU plain path."""
+def path_parity(pipe) -> tuple:
+    """Phase 5 (f32): the served output of one image on the card vs the CPU
+    plain path; returns (the image, the CPU f32 output, the CPU pipeline, the
+    card's f32 output)."""
     from singlehdr_tpu_torch.inference import HdrPredictor
     from singlehdr_tpu_torch.models import ReverseCameraPipeline
 
@@ -576,14 +725,58 @@ def path_parity(pipe) -> None:
     if got.shape != want.shape or not np.isfinite(got).all():
         raise AssertionError(f"bad served output {got.shape}")
     rel = float(np.abs(got - want).max() / np.abs(want).max())
-    print(f"  card vs CPU plain: max_abs_err {np.abs(got - want).max():.3e} "
+    print(f"  f32: card vs CPU plain: max_abs_err {np.abs(got - want).max():.3e} "
           f"max|ref| {np.abs(want).max():.4f} rel {rel:.3e} (bound {PATH_REL_TOL}); "
           f"CPU forward {cpu_s:.1f} s", flush=True)
     if not rel <= PATH_REL_TOL:
         raise AssertionError(f"served path differs from the CPU plain path: rel {rel:.3e}")
+    return img, want, cpu_pipe, got
 
 
-def timings(predictor, pipe, card: str) -> None:
+def psnr_db(got: np.ndarray, ref: np.ndarray) -> float:
+    """PSNR of ``got`` against ``ref`` with max|ref| as the peak."""
+    return float(10 * np.log10(np.abs(ref).max() ** 2 / np.mean((got - ref) ** 2)))
+
+
+def path_parity_bf16(pipe16, img, want_f32, cpu_pipe, got_f32) -> dict:
+    """Phase 5 (bf16): the card's bf16 output of phase 5's image against the
+    CPU f32 output (PSNR, peak max|ref|), and, at 1 x PATH_BF16_HW^2, the
+    card's bf16 path against the CPU bf16 plain path (the same rounding
+    rules, with cuDNN's and the CPU's bf16 convs rounding apart)."""
+    from singlehdr_tpu_torch.inference import HdrPredictor
+    from singlehdr_tpu_torch.models import ReverseCameraPipeline
+
+    got = HdrPredictor(pipe16)(img)
+    if got.shape != want_f32.shape or not np.isfinite(got).all() or got.dtype != np.float32:
+        raise AssertionError(f"bad bf16 served output {got.shape} {got.dtype}")
+    db = psnr_db(got, want_f32)
+    f32_db = psnr_db(got_f32, want_f32)
+    print(f"  bf16: card vs CPU f32 path, {SERVE_HW}^2: PSNR {db:.2f} dB (bound >= "
+          f"{PATH_BF16_MIN_PSNR_DB} dB; the card's f32 path {f32_db:.2f} dB); max_abs_err "
+          f"{np.abs(got - want_f32).max():.3e} max|ref| {np.abs(want_f32).max():.4f}", flush=True)
+    if not db >= PATH_BF16_MIN_PSNR_DB:
+        raise AssertionError(f"bf16 served path PSNR {db:.2f} dB < {PATH_BF16_MIN_PSNR_DB} dB")
+    cpu16 = ReverseCameraPipeline(torch.bfloat16)
+    cpu16.load_state_dict(cpu_pipe.state_dict())
+    small = np.random.RandomState(SEED + 5).rand(PATH_BF16_HW, PATH_BF16_HW, 3).astype(np.float32)
+    t0 = time.perf_counter()
+    want16 = HdrPredictor(cpu16.eval())(small)
+    cpu_s = time.perf_counter() - t0
+    got16 = HdrPredictor(pipe16)(small)
+    rel = float(np.abs(got16 - want16).max() / np.abs(want16).max())
+    print(f"  bf16: card vs CPU bf16 plain path, 1 x {PATH_BF16_HW}^2: max_abs_err "
+          f"{np.abs(got16 - want16).max():.3e} max|ref| {np.abs(want16).max():.4f} rel {rel:.3e} "
+          f"(bound {PATH_BF16_REL_TOL}), PSNR {psnr_db(got16, want16):.2f} dB; CPU forward "
+          f"{cpu_s:.1f} s", flush=True)
+    if not rel <= PATH_BF16_REL_TOL:
+        raise AssertionError(f"bf16 served path differs from the CPU bf16 plain path: rel {rel:.3e}")
+    return {"psnr_db_vs_cpu_f32": db, "rel_vs_cpu_bf16": rel}
+
+
+def timings(predictor, pipe, card: str) -> dict:
+    """Phase 7 for one pipeline (its compute dtype in the lines)."""
+    label = str(pipe.dtype).removeprefix("torch.")
+    out = {}
     rs = np.random.RandomState(SEED + 2)
     imgs = [rs.rand(SERVE_HW, SERVE_HW, 3).astype(np.float32) for _ in range(MAX_BATCH)]
     for n, reps in ((1, 20), (MAX_BATCH, 8)):
@@ -593,7 +786,8 @@ def timings(predictor, pipe, card: str) -> None:
             predictor.predict_batch(imgs[:n])
             lat.append(time.perf_counter() - t0)
         p50 = float(np.median(lat))
-        print(f"  b{n} @ {SERVE_HW}^2: p50 {p50 * 1e3:.1f} ms/request batch, "
+        out[f"b{n}_p50_ms"] = p50 * 1e3
+        print(f"  {label} b{n} @ {SERVE_HW}^2: p50 {p50 * 1e3:.1f} ms/request batch, "
               f"{n / p50:.2f} img/s  [{card}]", flush=True)
     # per-net device times at batch MAX_BATCH (576^2 after the pad)
     hw = SERVE_HW + 64
@@ -614,8 +808,10 @@ def timings(predictor, pipe, card: str) -> None:
             "pipeline": lambda: pipe(x),
         }
         per_net = {k: cuda_ms(f, 3) for k, f in nets.items()}
-    print("  per-net ms at b%d: %s  [%s]" % (
-        MAX_BATCH, ", ".join(f"{k} {v:.2f}" for k, v in per_net.items()), card), flush=True)
+    print("  %s per-net ms at b%d: %s  [%s]" % (
+        label, MAX_BATCH, ", ".join(f"{k} {v:.2f}" for k, v in per_net.items()), card), flush=True)
+    out["per_net_ms"] = per_net
+    return out
 
 
 def k1_bwd_inputs(dev, b: int, n: int, seed: int):
@@ -753,16 +949,25 @@ def check_train_launches(counts: dict, steps: int, label: str) -> None:
             raise AssertionError(f"{label}: {name} launched in train mode")
 
 
+def _add_counts(total: dict, by_dtype: dict) -> None:
+    for name, counts in by_dtype.items():
+        for dtype, n in counts.items():
+            total.setdefault(name, {}).setdefault(dtype, 0)
+            total[name][dtype] += n
+
+
 def joint_training(card: str) -> dict:
     """Phase 9: the joint configuration through cli.joint_train.run, then a
-    resume, then one cli.train --lin step.  Returns the summed launch counts."""
+    resume, then one cli.train --lin step, then the joint configuration with
+    ``--dtype bfloat16``.  Returns the summed launch counts by kernel and
+    dtype."""
     from singlehdr_tpu_torch.cli import joint_train, train
     from singlehdr_tpu_torch.ops import cuda as kernels
     from singlehdr_tpu_torch.train.checkpoint import CheckpointManager
 
     root = tempfile.mkdtemp(prefix="chip_smoke_train_")
     cwd = os.getcwd()
-    total = dict.fromkeys(kernels.KERNELS, 0)
+    total = {name: {} for name in kernels.KERNELS}
     try:
         data = os.path.join(root, "hdr")
         os.makedirs(data)
@@ -783,7 +988,7 @@ def joint_training(card: str) -> dict:
             if state.step != iterations:
                 raise AssertionError(f"joint run ended at step {state.step}, not {iterations}")
             check_train_launches(counts, iterations - start, f"joint steps {start}->{iterations}")
-            total = {k: total[k] + counts[k] for k in total}
+            _add_counts(total, kernels.launch_counts_by_dtype())
             print(f"  joint_train.run to step {iterations} (from {start}): "
                   f"{time.perf_counter() - t0:.1f} s wall incl. set-up  [{card}]", flush=True)
         saved = CheckpointManager(ck["jnt"]).steps()
@@ -801,11 +1006,35 @@ def joint_training(card: str) -> dict:
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
         check_train_launches(counts, 1, "train --lin step")
-        total = {k: total[k] + counts[k] for k in total}
+        _add_counts(total, kernels.launch_counts_by_dtype())
         lin_losses = logged_losses(root, "lin/loss")
         if CheckpointManager(ck["lin"]).steps() != [1] or not np.isfinite(lin_losses).all():
             raise AssertionError(f"lin run: checkpoints {CheckpointManager(ck['lin']).steps()}, "
                                  f"losses {lin_losses}")
+
+        # the joint configuration in bf16, from the same pretrained nets, in a
+        # run directory of its own
+        bf16_root = os.path.join(root, "bf16")
+        os.makedirs(bf16_root)
+        os.chdir(bf16_root)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        args = base[:-1] + [os.path.join(bf16_root, "jnt"), "--iterations", str(BF16_JOINT_STEPS),
+                            "--dtype", "bfloat16"]
+        state = joint_train.run(joint_train.build_parser().parse_args(args))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        if state.step != BF16_JOINT_STEPS or state.dtype != torch.bfloat16:
+            raise AssertionError(f"bf16 joint run: step {state.step}, dtype {state.dtype}")
+        check_train_launches(counts, BF16_JOINT_STEPS, "bf16 joint steps")
+        _add_counts(total, kernels.launch_counts_by_dtype())
+        losses = logged_losses(bf16_root, "jnt/loss")
+        if len(losses) != BF16_JOINT_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f"bf16 joint losses logged: {losses}")
+        print(f"  joint_train.run --dtype bfloat16, {BF16_JOINT_STEPS} steps: "
+              f"{time.perf_counter() - t0:.1f} s wall incl. set-up; losses "
+              f"{[round(v, 4) for v in losses]}; launches by dtype "
+              f"{kernels.launch_counts_by_dtype()}  [{card}]", flush=True)
     finally:
         os.chdir(cwd)
         shutil.rmtree(root, ignore_errors=True)
@@ -897,6 +1126,8 @@ def step_parity(dev) -> None:
           f"{max((own[n] / net_max[n.split('.')[0]] for n in missed), default=0):.2e} of "
           f"their net's: {', '.join(missed)}", flush=True)
 
+    bf16_step_parity(dev, cpu)
+
     state = init_multi_state(("deq", "lin", "hal", "ref"), 1e-5, seed=SEED, device=dev)
     g = torch.Generator().manual_seed(SEED + 3)
     ldr = torch.rand(4, 3, TRAIN_HW, TRAIN_HW, generator=g).to(dev)
@@ -914,14 +1145,78 @@ def step_parity(dev) -> None:
           f"{max(gr.abs().max().item() for gr in deq_grads):.3e}, launches {counts}", flush=True)
 
 
-def train_timings(dev, card: str, bwd_report: dict) -> None:
-    """Phase 11: the joint step at batch 16, 256^2, split with CUDA events."""
+def net_distance(d: dict, ref: dict, net: str) -> tuple:
+    """(|d - ref| / |ref|, cos(d, ref)) over one net's gradient tensors."""
+    keys = [k for k in ref if k.startswith(net + ".")]
+    norm = sum(float((ref[k] ** 2).sum()) for k in keys) ** 0.5
+    own = sum(float((d[k] ** 2).sum()) for k in keys) ** 0.5
+    dist = sum(float(((d[k] - ref[k]) ** 2).sum()) for k in keys) ** 0.5 / norm
+    dot = sum(float((d[k] * ref[k]).sum()) for k in keys)
+    return dist, dot / (own * norm) if own > 0 else 0.0
+
+
+def bf16_net_failures(net: str, got: dict, ref: dict, cpu16: dict) -> list:
+    """The phase-10 bf16 bounds that one net's card gradients ``got`` break,
+    against the CPU f32 gradients ``ref`` and the CPU bf16 ones ``cpu16``."""
+    dist, cos = net_distance(got, ref, net)
+    if net == "deq":
+        return [] if dist <= BF16_STEP_DEQ_TOL else [f"deq: distance {dist:.4f}"]
+    cpu_dist, cpu_cos = net_distance(cpu16, ref, net)
+    out = []
+    if not dist <= BF16_STEP_NOISE_FACTOR * cpu_dist + 0.02:
+        out.append(f"{net}: distance {dist:.3f}, the CPU bf16 step's {cpu_dist:.3f}")
+    if not cos >= max(BF16_STEP_COS_MIN, cpu_cos - BF16_STEP_COS_SLACK):
+        out.append(f"{net}: cosine {cos:.3f}, the CPU bf16 step's {cpu_cos:.3f}")
+    return out
+
+
+def bf16_step_parity(dev, ref: dict) -> None:
+    """Phase 10, bf16: one joint step on the card and on the CPU in bf16, from
+    phase 10's weights and batch, each net's gradients held to the CPU f32
+    step's ``ref`` (float64 CPU tensors) by ``bf16_net_failures``."""
+    from singlehdr_tpu_torch.models.vgg16 import Vgg16Features
+    from singlehdr_tpu_torch.train import steps
+    from singlehdr_tpu_torch.train.state import init_multi_state
+
+    grads, losses = {}, {}
+    for label, where in (("cpu", "cpu"), ("card", dev)):
+        state = init_multi_state(("deq", "lin", "hal"), 1e-5, seed=SEED, device=where,
+                                 dtype=torch.bfloat16)
+        losses[label], _ = steps.make_joint_train_step(Vgg16Features().to(where), torch.bfloat16)(
+            state, *joint_batch(where, 2, 64, SEED))
+        grads[label] = {n: p.grad.double().cpu() for n, p in state.nets.named_parameters()}
+    card, cpu16 = grads["card"], grads["cpu"]
+    loss_rel = abs(losses["card"].item() - losses["cpu"].item()) / abs(losses["cpu"].item())
+    report = []
+    for net in ("deq", "lin", "hal"):
+        (dist, cos), (cpu_dist, cpu_cos) = net_distance(card, ref, net), net_distance(cpu16, ref, net)
+        report.append(f"{net} {dist:.4f} (cos {cos:.3f}) / {cpu_dist:.4f} (cos {cpu_cos:.3f})")
+    print(f"  bf16 joint step 2x64^2: loss card vs CPU bf16 rel {loss_rel:.3e} (bound "
+          f"{BF16_STEP_LOSS_REL_TOL}); gradients' distance from the CPU f32 step's, card / CPU "
+          f"bf16: {'; '.join(report)}", flush=True)
+    failures = [f"{name}: non-finite" for name, g in card.items() if not torch.isfinite(g).all()]
+    if not loss_rel <= BF16_STEP_LOSS_REL_TOL:
+        failures.append(f"loss differs from the CPU bf16 step: rel {loss_rel:.3e}")
+    for net in ("deq", "lin", "hal"):
+        failures += bf16_net_failures(net, card, ref, cpu16)
+        for fault, sign in (("zeroed", 0.0), ("sign-flipped", -1.0)):
+            planted = {k: sign * g if k.startswith(net + ".") else g for k, g in card.items()}
+            if not bf16_net_failures(net, planted, ref, cpu16):
+                failures.append(f"{net}: a {fault} gradient passes the bf16 bounds")
+    if failures:
+        raise AssertionError("bf16 joint step:\n  " + "\n  ".join(failures))
+
+
+def train_timings(dev, card: str, bwd_report: dict, dtype=torch.float32) -> float:
+    """Phase 11: the joint step at batch 16, 256^2, with the nets computing in
+    ``dtype`` (the VGG of the perceptual loss f32, as in the CLI), split with
+    CUDA events; returns the median step's device ms."""
     from singlehdr_tpu_torch.models.vgg16 import Vgg16Features
     from singlehdr_tpu_torch.ops.cuda.apply_rf_cuda import apply_rf_bwd
     from singlehdr_tpu_torch.train import steps
     from singlehdr_tpu_torch.train.state import init_multi_state
 
-    state = init_multi_state(("deq", "lin", "hal"), 1e-5, seed=SEED, device=dev)
+    state = init_multi_state(("deq", "lin", "hal"), 1e-5, seed=SEED, device=dev, dtype=dtype)
     vgg = Vgg16Features().to(dev)
     batch = joint_batch(dev, TRAIN_BATCH, TRAIN_HW, SEED + 4)
     state.nets.train()
@@ -953,12 +1248,14 @@ def train_timings(dev, card: str, bwd_report: dict) -> None:
     g = torch.randn_like(ldr)
     step_bwd_ms = device_ms(lambda: apply_rf_bwd(ldr, invcrf, g, False, True))
     hot_bwd_ms = bwd_report["rf_only_ms"]
-    print(f"  joint step b{TRAIN_BATCH} @ {TRAIN_HW}^2 f32, median of {len(rows)}: {total:.2f} ms device "
+    print(f"  joint step b{TRAIN_BATCH} @ {TRAIN_HW}^2 {str(dtype).removeprefix('torch.')}, median of "
+          f"{len(rows)}: {total:.2f} ms device "
           f"({wall:.2f} ms wall), {TRAIN_BATCH / total * 1e3:.2f} img/s; forward+loss {fwd:.2f} ms, "
           f"backward {bwd:.2f} ms, optimizer.step {opt:.2f} ms; peak memory {peak:.2f} GiB; "
           f"K1-bwd on this step's ldr {step_bwd_ms:.4f} ms = {100 * step_bwd_ms / total:.4f} % of the "
           f"step, on phase 8's saturated input {hot_bwd_ms:.4f} ms = {100 * hot_bwd_ms / total:.4f} %  "
           f"[{card}]", flush=True)
+    return total
 
 
 def main() -> int:
@@ -968,8 +1265,9 @@ def main() -> int:
     phase("1 device")
     card = card_line()
     print(card, flush=True)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from singlehdr_tpu_torch.precision import use_full_f32
+
+    use_full_f32()
     dev = torch.device("cuda", torch.cuda.current_device())
     print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(dev)} x{torch.cuda.device_count()}", flush=True)
@@ -987,34 +1285,42 @@ def main() -> int:
     from singlehdr_tpu_torch.inference import HdrPredictor
     from singlehdr_tpu_torch.models import build_pipeline
 
-    pipe = build_pipeline(seed=SEED, device=dev)
+    pipes = {torch.float32: build_pipeline(seed=SEED, device=dev),
+             torch.bfloat16: build_pipeline(seed=SEED, device=dev, dtype=torch.bfloat16)}
 
     phase("3 kernels vs plain")
-    report = check_kernels(pipe, dev)
+    report = check_kernels(pipes[torch.float32], dev)
 
     phase("4 serving")
-    predictor = HdrPredictor(pipe)
-    t0 = time.perf_counter()
-    predictor.warmup([(SERVE_HW, SERVE_HW)], batch_sizes=(1, MAX_BATCH))
-    torch.cuda.synchronize()
-    print(f"  warmed {SERVE_HW}x{SERVE_HW} at b1, b{MAX_BATCH} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    stats, launches = serve_requests(predictor)
+    predictors, served = {}, {}
+    for dtype, pipe in pipes.items():
+        predictors[dtype] = HdrPredictor(pipe)
+        t0 = time.perf_counter()
+        predictors[dtype].warmup([(SERVE_HW, SERVE_HW)], batch_sizes=(1, MAX_BATCH))
+        torch.cuda.synchronize()
+        print(f"  {str(dtype).removeprefix('torch.')}: warmed {SERVE_HW}x{SERVE_HW} at b1, "
+              f"b{MAX_BATCH} in {time.perf_counter() - t0:.1f} s", flush=True)
+        served[dtype] = serve_requests(predictors[dtype])
 
     phase("5 whole path vs CPU plain")
-    path_parity(pipe)
+    img, want, cpu_pipe, got = path_parity(pipes[torch.float32])
+    path_parity_bf16(pipes[torch.bfloat16], img, want, cpu_pipe, got)
+    del cpu_pipe
 
     phase("6 launch counters")
-    check_launches(stats, launches)
+    for dtype, (stats, launches) in served.items():
+        check_launches(stats, launches, dtype)
 
     phase("7 timings")
-    timings(predictor, pipe, card)
+    for dtype, pipe in pipes.items():
+        timings(predictors[dtype], pipe, card)
     torch.cuda.synchronize()
-    del predictor, pipe
+    del predictors, pipes
     torch.cuda.empty_cache()
 
     phase("8 K1-bwd vs plain")
     report["apply_rf_bwd"] = check_k1_bwd(dev)
+    report["apply_rf_bwd"]["dtype"] = "float32"
 
     phase("9 joint training through the entry point")
     train_launches = joint_training(card)
@@ -1023,27 +1329,40 @@ def main() -> int:
     step_parity(dev)
 
     phase("11 training timings")
-    train_timings(dev, card, report["apply_rf_bwd"])
+    step_ms = {dtype: train_timings(dev, card, report["apply_rf_bwd"], dtype)
+               for dtype in (torch.float32, torch.bfloat16)}
+    print(f"  joint step b{TRAIN_BATCH} @ {TRAIN_HW}^2: f32 {step_ms[torch.float32]:.2f} ms, bf16 "
+          f"{step_ms[torch.bfloat16]:.2f} ms ({step_ms[torch.float32] / step_ms[torch.bfloat16]:.2f}x)"
+          f"  [{card}]", flush=True)
     torch.cuda.synchronize()
 
-    # launches: the serving path's (phase 4) plus the training path's (phase 9);
-    # per serving batch and per training step as counted in those runs
-    kernels = [
-        {"name": name, "route": "cuda", "source": SOURCES[name][0],
-         "replaces": SOURCES[name][1],
-         "launches": launches.get(name, 0) + train_launches[name],
-         "launches_by_path": {"serving": launches.get(name, 0), "training": train_launches[name]},
-         "launches_per_batch": {"serving": launches.get(name, 0) / stats["device_batches"],
-                                "training_step": train_launches[name] / TRAIN_STEPS},
-         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-         "bound_ms": r["bound_ms"],
-         "bound_by": "operations" if r["ops_bound_ms"] >= r["bound_ms"] / 2 else "bytes",
-         "library_ms": r["library_ms"]}
-        for name, r in report.items()
-    ]
-    for k in kernels:
-        if k["name"] in KERNEL_LAUNCHES_PER_STAGE:
-            k["kernel_launches_per_stage"] = KERNEL_LAUNCHES_PER_STAGE[k["name"]]
+    # launches: the serving paths' (phase 4, both dtypes) plus the training
+    # paths' (phase 9, both dtypes), of each (kernel, dtype); per serving batch
+    # of that dtype's pipeline and per training step
+    train_steps = TRAIN_STEPS + BF16_JOINT_STEPS
+    kernels = []
+    for name, r in report.items():
+        base = name.removesuffix("_bf16")
+        dt = r["dtype"]
+        serve = {str(d).removeprefix("torch."): launches[base].get(dt, 0)
+                 for d, (_, launches) in served.items()}
+        batches = {str(d).removeprefix("torch."): stats["device_batches"]
+                   for d, (stats, _) in served.items()}
+        n_serve, n_train = sum(serve.values()), train_launches[base].get(dt, 0)
+        entry = {
+            "name": name, "dtype": dt, "route": "cuda", "source": SOURCES[base][0],
+            "replaces": SOURCES[base][1], "launches": n_serve + n_train,
+            "launches_by_path": {"serving": n_serve, "training": n_train},
+            "launches_per_batch": {
+                **{f"serving_{d}": serve[d] / batches[d] for d in serve},
+                "training_step": n_train / train_steps},
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": "operations" if r["ops_bound_ms"] >= r["bound_ms"] / 2 else "bytes",
+            "library_ms": r["library_ms"]}
+        if base in KERNEL_LAUNCHES_PER_STAGE:
+            entry["kernel_launches_per_stage"] = KERNEL_LAUNCHES_PER_STAGE[base]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,9 @@ resuming from ``--jnt_ckpt`` when it holds a checkpoint.
 
   python -m singlehdr_tpu_torch.cli.joint_train --dir /data/HDR-Synth
 
-Trains on CUDA, f32 with TF32 off; ``--device cpu`` trains on the CPU.
+Trains on CUDA, f32 with TF32 off; ``--device cpu`` trains on the CPU;
+``--dtype bfloat16`` computes the nets in bf16 (f32 parameters and losses;
+the perceptual VGG stays f32, as in the JAX CLI).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from __future__ import annotations
 import argparse
 import os
 
-from singlehdr_tpu_torch.cli import cli_device
+from singlehdr_tpu_torch.cli import DTYPES, add_dtype_arg, cli_device
 from singlehdr_tpu_torch.data.synth import get_train_dataset
 from singlehdr_tpu_torch.models.vgg16 import Vgg16Features
 from singlehdr_tpu_torch.train.checkpoint import restore_pretrained_subnets
@@ -48,24 +50,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt_every", type=int, default=1000)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; fails without a card) or cpu")
+    add_dtype_arg(p)
     return p
 
 
 def run(args):
     """Train; returns the final ``TrainState``."""
     device = cli_device(args.device)
+    dtype = DTYPES[args.dtype]
     cfg = LoopConfig(batch_size=args.batch_size, iterations=args.iterations, use_jpeg=args.jpeg,
                      n_workers=args.workers, log_every=args.log_every,
                      ckpt_every=args.ckpt_every)
     dataset = get_train_dataset(args.dir, patch_size=args.patch_size)
-    state = init_multi_state(("deq", "lin", "hal"), args.lr, seed=INIT_SEED, device=device)
+    state = init_multi_state(("deq", "lin", "hal"), args.lr, seed=INIT_SEED, device=device,
+                             dtype=dtype)
     state = restore_pretrained_subnets(
         state, {"deq": args.deq_ckpt, "lin": args.lin_ckpt, "hal": args.hal_ckpt})
     vgg = Vgg16Features(npy_path=args.vgg_ckpt).to(device)
     return run_synth_training(
         module_name="jnt",
         state=state,
-        step_fn=make_joint_train_step(vgg),
+        step_fn=make_joint_train_step(vgg, dtype),
         dataset=dataset,
         cfg=cfg,
         ckpt_dir=args.jnt_ckpt,

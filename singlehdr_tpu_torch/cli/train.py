@@ -4,7 +4,8 @@
   python -m singlehdr_tpu_torch.cli.train --hdrdir /data/HDR-Synth --deq true
   python -m singlehdr_tpu_torch.cli.train --hdrdir /data/HDR-Synth --lin true --hal true
 
-Trains on CUDA, f32 with TF32 off; ``--device cpu`` trains on the CPU.
+Trains on CUDA, f32 with TF32 off; ``--device cpu`` trains on the CPU;
+``--dtype bfloat16`` computes the nets in bf16 (f32 parameters and losses).
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import argparse
 import os
 
-from singlehdr_tpu_torch.cli import cli_device
+from singlehdr_tpu_torch.cli import DTYPES, add_dtype_arg, cli_device
 from singlehdr_tpu_torch.data.synth import get_train_dataset
 from singlehdr_tpu_torch.models.vgg16 import Vgg16Features
 from singlehdr_tpu_torch.train import steps as steps_mod
@@ -46,22 +47,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt_every", type=int, default=1000)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; fails without a card) or cpu")
+    add_dtype_arg(p)
     return p
 
 
 def run(args) -> None:
     device = cli_device(args.device)
+    dtype = DTYPES[args.dtype]
     cfg = LoopConfig(batch_size=args.batch_size, iterations=args.iterations, use_jpeg=args.jpeg,
                      n_workers=args.workers, log_every=args.log_every,
                      ckpt_every=args.ckpt_every)
     dataset = get_train_dataset(args.hdrdir, patch_size=args.patch_size)
     units = (
-        ("deq", args.deq, args.deq_ckpt, steps_mod.make_deq_train_step,
+        ("deq", args.deq, args.deq_ckpt, lambda: steps_mod.make_deq_train_step(dtype),
          lambda b: (b["ldr"], b["jpeg"], b["mask"]), ()),
-        ("lin", args.lin, args.lin_ckpt, steps_mod.make_lin_train_step,
+        ("lin", args.lin, args.lin_ckpt, lambda: steps_mod.make_lin_train_step(dtype),
          lambda b: (b["ldr"], b["clipped_hdr_t"], b["mask"], b["invcrf"]), ()),
         ("hal", args.hal, args.hal_ckpt,
-         lambda: steps_mod.make_hal_train_step(Vgg16Features(npy_path=args.vgg_ckpt).to(device)),
+         lambda: steps_mod.make_hal_train_step(Vgg16Features(npy_path=args.vgg_ckpt).to(device),
+                                               dtype),
          lambda b: (b["hdr_t"], b["clipped_hdr_t"], b["mask"]), ("y_final",)),
     )
     for name, wanted, ckpt_dir, make_step, batch_to_args, taps in units:
@@ -69,7 +73,7 @@ def run(args) -> None:
             continue
         run_synth_training(
             module_name=name,
-            state=init_net_state(name, args.lr, seed=INIT_SEED, device=device),
+            state=init_net_state(name, args.lr, seed=INIT_SEED, device=device, dtype=dtype),
             step_fn=make_step(),
             dataset=dataset,
             cfg=cfg,

@@ -86,7 +86,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ uint64_t b_desc(const float* p) {
+__device__ __forceinline__ uint64_t b_desc(const void* p) {
   const uint64_t addr = smem_addr(p);
   return ((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(kLeadBytes >> 4) << 16) |
          (static_cast<uint64_t>(kStrideBytes >> 4) << 32);

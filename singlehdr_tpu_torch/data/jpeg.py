@@ -18,7 +18,7 @@ from typing import Sequence
 
 import numpy as np
 
-try:  # cv2 is present in the target image; degrade gracefully without it
+try:  # cv2 is present in the target image; without it and the native codec, raise
     import cv2
 
     cv2.setNumThreads(0)  # avoid oversubscription under our own pool
@@ -71,8 +71,11 @@ def jpeg_roundtrip_batch(
         return native_jpeg.jpeg_roundtrip_batch_native(
             np.ascontiguousarray(rgb_u8), qualities
         )
-    if not _HAS_CV2:  # pragma: no cover — identity fallback
-        return rgb_u8.copy()
+    if not _HAS_CV2:
+        raise RuntimeError(
+            "no JPEG codec: neither the native libjpeg codec (native/build/libshdr_native.so, "
+            "built by `make -C native`) nor cv2 is available, so the JPEG degradation cannot run"
+        )
     futs = [
         _pool().submit(_roundtrip_one, rgb_u8[i], q)
         for i, q in enumerate(qualities)

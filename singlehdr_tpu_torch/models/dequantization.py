@@ -1,6 +1,7 @@
 """Dequantization-Net (counterpart of ``singlehdr_tpu.models.dequantization``):
 a residual U-Net with a 256-wide bottleneck whose tanh-bounded residual is
-added to the input (callers clip the sum to [0, 1])."""
+added to the input (callers clip the sum to [0, 1]).  It computes in
+``dtype`` and returns f32, as the Flax net does."""
 
 from __future__ import annotations
 
@@ -11,9 +12,11 @@ from singlehdr_tpu_torch.models.unet import ResidualUNet
 
 
 class DequantizationNet(nn.Module):
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.unet = ResidualUNet(3, bottleneck_features=256)
+        self.dtype = dtype
+        self.unet = ResidualUNet(3, bottleneck_features=256, dtype=dtype)
 
     def forward(self, ldr: torch.Tensor) -> torch.Tensor:
-        return ldr + torch.tanh(self.unet(ldr))
+        res = self.unet(ldr)
+        return (ldr.to(res.dtype) + torch.tanh(res)).float()

@@ -12,6 +12,16 @@
   * ``Dense``: glorot-uniform weight [out, in], zero bias.
   * ``UpsampleConv``: ``conv3x3(resize_bilinear_x2(x))``.
 
+Compute dtype (the Flax modules' ``dtype``): parameters stay f32 and each
+layer computes in its ``dtype``.  A conv or dense layer casts its input and
+its weight and bias to it when it runs; a conv, as Flax's, rounds its
+product to it before adding the bias in it (in f32 the fused bias computes
+the same);
+BatchNorm normalises in f32 with its f32 parameters and statistics (batch
+statistics reduced in f32) and returns its input's dtype, as Flax's does, and
+in train mode in a narrow dtype is composed as Flax's, so that its backward
+rounds where JAX's does.  One f32 state_dict serves every dtype.
+
 Module attribute names follow the Flax module names, so state_dict keys are
 the JAX parameter paths with dots (see ``convert.py``).
 """
@@ -24,6 +34,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from singlehdr_tpu_torch.ops.cuda.conv_gemm import cached_on
 from singlehdr_tpu_torch.ops.resize import resize_bilinear_x2, same_pads
 
 BN_EPSILON = 1e-3
@@ -33,6 +44,16 @@ LEAKY_SLOPE = 0.1
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, LEAKY_SLOPE)
+
+
+def cast_param(module: nn.Module, name: str, dtype: torch.dtype):
+    """``module``'s parameter ``name`` in ``dtype``: under autograd a cast in
+    the graph, otherwise the cast kept by ``cached_on``, so an eval forward
+    casts each weight once."""
+    p = getattr(module, name)
+    if p is None or p.dtype == dtype:
+        return p
+    return cached_on(module, f"{name}:{dtype}", (p,), lambda: p.to(dtype))
 
 
 def conv2d_same(x, weight, bias=None, stride: int = 1):
@@ -48,63 +69,100 @@ def conv2d_same(x, weight, bias=None, stride: int = 1):
 
 
 class Conv2d(nn.Module):
-    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1, bias: bool = True):
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.stride = stride
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
         if bias:
             self.bias = nn.Parameter(torch.empty(cout))
         else:
             self.register_parameter("bias", None)
 
+    def compute_weight(self) -> torch.Tensor:
+        """The kernel in the compute dtype (``cast_param``)."""
+        return cast_param(self, "weight", self.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d_same(x, self.weight, self.bias, self.stride)
+        x, w, bias = x.to(self.dtype), self.compute_weight(), cast_param(self, "bias", self.dtype)
+        if bias is None or self.dtype == torch.float32:
+            return conv2d_same(x, w, bias, self.stride)
+        # Flax rounds the conv's output to the compute dtype, then adds the bias in it
+        return conv2d_same(x, w, None, self.stride) + bias[:, None, None]
 
 
 class UpsampleConv(Conv2d):
-    """``conv3x3(resize_bilinear_x2(x))`` — the decoder's resize + conv pair."""
+    """``conv3x3(resize_bilinear_x2(x))`` — the decoder's resize + conv pair;
+    the resize runs in the compute dtype, as in Flax."""
 
-    def __init__(self, cin: int, cout: int):
-        super().__init__(cin, cout, 3)
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32):
+        super().__init__(cin, cout, 3, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(resize_bilinear_x2(x))
+        return super().forward(resize_bilinear_x2(x.to(self.dtype)))
 
 
 class Dense(nn.Module):
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(cout, cin))
         self.bias = nn.Parameter(torch.empty(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        return F.linear(x.to(self.dtype), cast_param(self, "weight", self.dtype),
+                        cast_param(self, "bias", self.dtype))
 
 
 class BatchNorm(nn.Module):
-    """Keras BatchNormalization over dim 1 of NCHW (or [b, c]) tensors."""
+    """Keras BatchNormalization over dim 1 of NCHW (or [b, c]) tensors, in the
+    compute dtype: the input is cast to ``dtype``, normalised in f32 with the
+    f32 parameters, and returned in ``dtype``."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(channels))
         self.bias = nn.Parameter(torch.empty(channels))
         self.register_buffer("running_mean", torch.empty(channels))
         self.register_buffer("running_var", torch.empty(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
         if not self.training:
             return F.batch_norm(
                 x, self.running_mean, self.running_var, self.weight, self.bias,
                 False, BN_MOMENTUM, BN_EPSILON,
             )
+        if self.dtype != torch.float32:
+            return self._train_as_flax(x)
         # Flax/Keras keep the BIASED batch variance in the running average;
-        # torch's own update would store the unbiased one (n / (n - 1)).
+        # torch's own update would store the unbiased one (n / (n - 1)).  The
+        # statistics are reduced in f32 whatever the compute dtype, as Flax's.
         with torch.no_grad():
             dims = (0,) + tuple(range(2, x.dim()))
-            var, mean = torch.var_mean(x, dim=dims, unbiased=False)
+            var, mean = torch.var_mean(x.float(), dim=dims, unbiased=False)
             self.running_mean.mul_(1.0 - BN_MOMENTUM).add_(mean, alpha=BN_MOMENTUM)
             self.running_var.mul_(1.0 - BN_MOMENTUM).add_(var, alpha=BN_MOMENTUM)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, BN_EPSILON)
+
+    def _train_as_flax(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode in a narrow dtype, composed as Flax's BatchNorm is: the
+        batch statistics from one f32 cast of ``x``, the normalisation in f32
+        from another, rounded once.  Autograd then rounds the gradient of each
+        cast to the compute dtype and sums the two in it, where JAX's backward
+        does.  (Flax takes the variance as E[x^2] - E[x]^2; the two-pass
+        variance here differs from it only in f32 rounding.)"""
+        dims = (0,) + tuple(range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        var, mean = torch.var_mean(x.float(), dim=dims, unbiased=False)
+        with torch.no_grad():  # the biased variance, as Flax keeps it
+            self.running_mean.mul_(1.0 - BN_MOMENTUM).add_(mean, alpha=BN_MOMENTUM)
+            self.running_var.mul_(1.0 - BN_MOMENTUM).add_(var, alpha=BN_MOMENTUM)
+        mul = torch.rsqrt(var + BN_EPSILON) * self.weight
+        y = (x.float() - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(self.dtype)
 
     def folded(self) -> tuple[torch.Tensor, torch.Tensor]:
         """Eval BN as an affine map: y = x * scale + shift, per channel."""

@@ -7,6 +7,11 @@ predicts PCA weights over the inverse-EMoR basis (``g0 + Hinv @ w``) and the
 curve is projected to be monotone.  In eval the feature stack and the stem
 run as the K3 wrapper ``lin_feature_stem`` with the stem BN folded into the
 conv (the CUDA kernel on the GPU, its plain version on the CPU).
+
+``dtype`` is the compute dtype of the feature stack, the stem and the
+residual blocks (K3 in its bf16 form for bf16); the pooled features go to
+the Dense head in f32, and the curve decode and monotone projection stay
+f32, as in the Flax net.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import torch.nn as nn
 
 from singlehdr_tpu_torch.calib import load_inverse_emor
 from singlehdr_tpu_torch.models.layers import BatchNorm, Conv2d, Dense
+from singlehdr_tpu_torch.ops.cuda.conv_gemm import cached_on
 from singlehdr_tpu_torch.ops.cuda.lin_stem_cuda import lin_feature_stem
 from singlehdr_tpu_torch.ops.curves import decode_invcrf, monotonic_rf
 from singlehdr_tpu_torch.ops.histogram import N_FEATURES, linearization_features
@@ -28,19 +34,19 @@ class BottleneckResBlock(nn.Module):
     """1-3-1 bottleneck residual block; bias-free convs, BN after each."""
 
     def __init__(self, cin: int, filters: tuple[int, int, int], stride: int = 1,
-                 projection: bool = False):
+                 projection: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         f1, f2, f3 = filters
         self.projection = projection
         if projection:
-            self.proj_conv = Conv2d(cin, f3, 1, stride, bias=False)
-            self.proj_bn = BatchNorm(f3)
-        self.conv1 = Conv2d(cin, f1, 1, stride, bias=False)
-        self.bn1 = BatchNorm(f1)
-        self.conv2 = Conv2d(f1, f2, 3, bias=False)
-        self.bn2 = BatchNorm(f2)
-        self.conv3 = Conv2d(f2, f3, 1, bias=False)
-        self.bn3 = BatchNorm(f3)
+            self.proj_conv = Conv2d(cin, f3, 1, stride, bias=False, dtype=dtype)
+            self.proj_bn = BatchNorm(f3, dtype)
+        self.conv1 = Conv2d(cin, f1, 1, stride, bias=False, dtype=dtype)
+        self.bn1 = BatchNorm(f1, dtype)
+        self.conv2 = Conv2d(f1, f2, 3, bias=False, dtype=dtype)
+        self.bn2 = BatchNorm(f2, dtype)
+        self.conv3 = Conv2d(f2, f3, 1, bias=False, dtype=dtype)
+        self.bn3 = BatchNorm(f3, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shortcut = self.proj_bn(self.proj_conv(x)) if self.projection else x
@@ -53,25 +59,41 @@ class BottleneckResBlock(nn.Module):
 class CrfFeatureNet(nn.Module):
     """Feature stack + stem + max pool + res1..res5 + global average -> [b, 512]."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.stem = Conv2d(N_FEATURES, 64, 7, stride=2)
-        self.stem_bn = BatchNorm(64)
-        self.res1 = BottleneckResBlock(64, (64, 64, 256), projection=True)
-        self.res2 = BottleneckResBlock(256, (64, 64, 256))
-        self.res3 = BottleneckResBlock(256, (64, 64, 256))
-        self.res4 = BottleneckResBlock(256, (128, 128, 512), stride=2, projection=True)
-        self.res5 = BottleneckResBlock(512, (128, 128, 512))
+        self.dtype = dtype
+        self.stem = Conv2d(N_FEATURES, 64, 7, stride=2, dtype=dtype)
+        self.stem_bn = BatchNorm(64, dtype)
+        self.res1 = BottleneckResBlock(64, (64, 64, 256), projection=True, dtype=dtype)
+        self.res2 = BottleneckResBlock(256, (64, 64, 256), dtype=dtype)
+        self.res3 = BottleneckResBlock(256, (64, 64, 256), dtype=dtype)
+        self.res4 = BottleneckResBlock(256, (128, 128, 512), stride=2, projection=True,
+                                       dtype=dtype)
+        self.res5 = BottleneckResBlock(512, (128, 128, 512), dtype=dtype)
+
+    def folded_stem(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The eval stem with its BN folded in: (kernel in the compute dtype,
+        bias f32), computed in f32 as the Flax net does.  Kept while the
+        stem's weight and bias and the four BN tensors are unchanged (their
+        data and versions), so K3 is handed the same tensor each forward and
+        packs it once (``lin_stem_cuda.packed_stem_weights``)."""
+        def fold():
+            scale, shift = self.stem_bn.folded()
+            k = (self.stem.weight * scale[:, None, None, None]).to(self.dtype)
+            return k, self.stem.bias * scale + shift
+
+        src = (self.stem.weight, self.stem.bias, self.stem_bn.weight, self.stem_bn.bias,
+               self.stem_bn.running_mean, self.stem_bn.running_var)
+        return cached_on(self, f"folded_stem:{self.dtype}", src, fold)
 
     def forward(self, ldr: torch.Tensor) -> torch.Tensor:
+        x = ldr.to(self.dtype)
         if self.training:
-            h = self.stem(linearization_features(ldr))
+            h = self.stem(linearization_features(x))
             h = torch.relu(self.stem_bn(h))
         else:
-            scale, shift = self.stem_bn.folded()
-            k = self.stem.weight * scale[:, None, None, None]
-            b = self.stem.bias * scale + shift
-            h = lin_feature_stem(ldr, k, b)
+            k, b = self.folded_stem()
+            h = lin_feature_stem(x, k, b)
         h = max_pool(h, 3, 2)
         for block in (self.res1, self.res2, self.res3, self.res4, self.res5):
             h = block(h)
@@ -79,9 +101,10 @@ class CrfFeatureNet(nn.Module):
 
 
 class LinearizationNet(nn.Module):
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.crf_feature_net = CrfFeatureNet()
+        self.dtype = dtype
+        self.crf_feature_net = CrfFeatureNet(dtype)
         self.pca_head = Dense(512, N_PCA_WEIGHTS)
         inv_emor = load_inverse_emor()
         # constants of the decoder, not weights: kept out of the state_dict
@@ -93,5 +116,5 @@ class LinearizationNet(nn.Module):
         )
 
     def forward(self, ldr: torch.Tensor) -> torch.Tensor:
-        w = self.pca_head(self.crf_feature_net(ldr))
+        w = self.pca_head(self.crf_feature_net(ldr).float())
         return monotonic_rf(decode_invcrf(w, self.g0, self.hinv))

@@ -8,7 +8,9 @@
     A_pred = B_pred + alpha * bgr_to_rgb(hal(B_pred))
     hdr    = ref(concat[A_pred, B_pred, C_pred])
 
-hal is fed B_pred, as in the reference's inference script.
+hal is fed B_pred, as in the reference's inference script.  ``dtype`` is the
+four nets' compute dtype (f32 or bf16): each net returns f32, so ``apply_rf``
+(K1), the mask and the blend stay f32, and ``hdr`` is f32 in both.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from singlehdr_tpu_torch.models.refinement import RefinementNet
 from singlehdr_tpu_torch.ops.color import bgr_to_rgb
 from singlehdr_tpu_torch.ops.cuda.apply_rf_cuda import apply_rf
 from singlehdr_tpu_torch.ops.masks import highlight_alpha
+from singlehdr_tpu_torch.precision import use_full_f32
 
 
 @dataclasses.dataclass
@@ -43,12 +46,13 @@ class PipelineOutputs:
 class ReverseCameraPipeline(nn.Module):
     """Full 4-net single-image HDR reconstruction."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.deq = DequantizationNet()
-        self.lin = LinearizationNet()
-        self.hal = HallucinationNet()
-        self.ref = RefinementNet()
+        self.dtype = dtype
+        self.deq = DequantizationNet(dtype)
+        self.lin = LinearizationNet(dtype)
+        self.hal = HallucinationNet(dtype)
+        self.ref = RefinementNet(dtype)
 
     def forward(self, ldr: torch.Tensor) -> PipelineOutputs:
         c_pred = torch.clamp(self.deq(ldr), 0.0, 1.0)
@@ -60,8 +64,12 @@ class ReverseCameraPipeline(nn.Module):
         return PipelineOutputs(c_pred, invcrf, b_pred, alpha, a_pred, hdr)
 
 
-def build_pipeline(seed: int = 0, device="cuda") -> ReverseCameraPipeline:
-    """A seeded, Keras-initialised pipeline in eval mode on ``device``."""
-    pipe = ReverseCameraPipeline()
+def build_pipeline(seed: int = 0, device="cuda",
+                   dtype: torch.dtype = torch.float32) -> ReverseCameraPipeline:
+    """A seeded, Keras-initialised pipeline in eval mode on ``device``,
+    computing in ``dtype`` (f32 parameters either way); f32 with TF32 off
+    (``precision.use_full_f32``)."""
+    use_full_f32()
+    pipe = ReverseCameraPipeline(dtype)
     keras_init_(pipe, torch.Generator().manual_seed(seed))
     return pipe.to(device).eval()

@@ -1,6 +1,7 @@
 """Refinement-Net (counterpart of ``singlehdr_tpu.models.refinement``): the
 U-Net with a 128-wide bottleneck over concat[A, B, C] (9 channels), its
-residual added to A with a ReLU output."""
+residual added to A with a ReLU output.  It computes in ``dtype`` and returns
+f32, as the Flax net does."""
 
 from __future__ import annotations
 
@@ -11,9 +12,11 @@ from singlehdr_tpu_torch.models.unet import ResidualUNet
 
 
 class RefinementNet(nn.Module):
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.unet = ResidualUNet(9, bottleneck_features=128)
+        self.dtype = dtype
+        self.unet = ResidualUNet(9, bottleneck_features=128, dtype=dtype)
 
     def forward(self, abc: torch.Tensor) -> torch.Tensor:
-        return torch.relu(abc[:, 0:3] + self.unet(abc))
+        res = self.unet(abc)
+        return torch.relu(abc[:, 0:3].to(res.dtype) + res).float()

@@ -8,6 +8,10 @@ width.  In eval the encoder prefix — the stem pair, down2 and down3 — runs
 through the K2 wrapper ``unet_stage2`` (the CUDA kernel on the GPU, its plain
 version on the CPU); down4, the bottleneck and the decoder stay ``F.conv2d``.
 Training takes the plain convs throughout (K2 has no backward).
+
+``dtype`` is the compute dtype (f32 or bf16): the input is cast to it, every
+conv runs in it (K2 in its bf16 form for bf16), and the head's output is in
+it; the wrapping nets return f32.
 """
 
 from __future__ import annotations
@@ -27,10 +31,10 @@ DOWN = ((32, 5), (64, 3), (128, 3))  # down2, down3, down4: (features, kernel)
 class DownStage(nn.Module):
     """avg-pool /2 then two leaky-ReLU convs."""
 
-    def __init__(self, cin: int, features: int, kernel: int):
+    def __init__(self, cin: int, features: int, kernel: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = Conv2d(cin, features, kernel)
-        self.conv2 = Conv2d(features, features, kernel)
+        self.conv1 = Conv2d(cin, features, kernel, dtype=dtype)
+        self.conv2 = Conv2d(features, features, kernel, dtype=dtype)
 
     def forward(self, x: torch.Tensor, pre_pooled: bool = False) -> torch.Tensor:
         if not pre_pooled:
@@ -41,10 +45,10 @@ class DownStage(nn.Module):
 class UpStage(nn.Module):
     """bilinear x2, conv, concat with the skip, conv (leaky-ReLU after each)."""
 
-    def __init__(self, cin: int, features: int):
+    def __init__(self, cin: int, features: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = Conv2d(cin, features, 3)
-        self.conv2 = Conv2d(2 * features, features, 3)
+        self.conv1 = Conv2d(cin, features, 3, dtype=dtype)
+        self.conv2 = Conv2d(2 * features, features, 3, dtype=dtype)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         x = leaky_relu(self.conv1(resize_bilinear_x2(x)))
@@ -52,30 +56,34 @@ class UpStage(nn.Module):
 
 
 def _k2(x: torch.Tensor, conv1: Conv2d, conv2: Conv2d):
-    """One K2 stage: (avg_pool_2x2(act), act) with act the two-conv output."""
-    return unet_stage2(x, conv1.weight, conv1.bias, conv2.weight, conv2.bias)
+    """One K2 stage: (avg_pool_2x2(act), act) with act the two-conv output;
+    the kernels in the compute dtype, the biases f32."""
+    return unet_stage2(x, conv1.compute_weight(), conv1.bias, conv2.compute_weight(), conv2.bias)
 
 
 class ResidualUNet(nn.Module):
     """Encoder-decoder returning the raw 3-channel head output; H, W must be
     multiples of 16."""
 
-    def __init__(self, in_channels: int, bottleneck_features: int):
+    def __init__(self, in_channels: int, bottleneck_features: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.stem1 = Conv2d(in_channels, STEM_FEATURES, STEM_KERNEL)
-        self.stem2 = Conv2d(STEM_FEATURES, STEM_FEATURES, STEM_KERNEL)
+        self.dtype = dtype
+        self.stem1 = Conv2d(in_channels, STEM_FEATURES, STEM_KERNEL, dtype=dtype)
+        self.stem2 = Conv2d(STEM_FEATURES, STEM_FEATURES, STEM_KERNEL, dtype=dtype)
         (f2, k2), (f3, k3), (f4, k4) = DOWN
-        self.down2 = DownStage(STEM_FEATURES, f2, k2)
-        self.down3 = DownStage(f2, f3, k3)
-        self.down4 = DownStage(f3, f4, k4)
-        self.bottleneck = DownStage(f4, bottleneck_features, 3)
-        self.up4 = UpStage(bottleneck_features, f4)
-        self.up3 = UpStage(f4, f3)
-        self.up2 = UpStage(f3, f2)
-        self.up1 = UpStage(f2, STEM_FEATURES)
-        self.head = Conv2d(STEM_FEATURES, 3, 3)
+        self.down2 = DownStage(STEM_FEATURES, f2, k2, dtype)
+        self.down3 = DownStage(f2, f3, k3, dtype)
+        self.down4 = DownStage(f3, f4, k4, dtype)
+        self.bottleneck = DownStage(f4, bottleneck_features, 3, dtype)
+        self.up4 = UpStage(bottleneck_features, f4, dtype)
+        self.up3 = UpStage(f4, f3, dtype)
+        self.up2 = UpStage(f3, f2, dtype)
+        self.up1 = UpStage(f2, STEM_FEATURES, dtype)
+        self.head = Conv2d(STEM_FEATURES, 3, 3, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
         if self.training:
             s1 = leaky_relu(self.stem2(leaky_relu(self.stem1(x))))
             s2 = self.down2(s1)

@@ -6,6 +6,8 @@ pool2, pool3) of a VGG-preprocessed input.  The weights come from the
 reference's ``vgg16.npy`` dict when the file exists, else from the JAX
 package's seeded He surrogate, drawn in the same order from the same
 ``np.random.RandomState(42)`` so that both packages hold identical weights.
+``dtype`` is the compute dtype of its convs (the CLIs keep it f32, as the JAX
+package's do); the pools come out in it.
 """
 
 from __future__ import annotations
@@ -58,11 +60,13 @@ def load_vgg16_params(npy_path: str | None = None) -> Params:
 class Vgg16Features(nn.Module):
     """rgb01 [b, 3, h, w] -> (pool1, pool2, pool3); frozen and always in eval."""
 
-    def __init__(self, params: Params | None = None, npy_path: str | None = None):
+    def __init__(self, params: Params | None = None, npy_path: str | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         params = params if params is not None else load_vgg16_params(npy_path)
         for name, cin, cout in _LAYERS:
-            conv = Conv2d(cin, cout, 3)
+            conv = Conv2d(cin, cout, 3, dtype=dtype)
             kernel, bias = params[name]
             with torch.no_grad():
                 conv.weight.copy_(torch.from_numpy(np.transpose(kernel, (3, 2, 0, 1))))
@@ -76,7 +80,7 @@ class Vgg16Features(nn.Module):
         return super().train(False)
 
     def forward(self, rgb01: torch.Tensor):
-        x = vgg_preprocess(rgb01, self.mean)
+        x = vgg_preprocess(rgb01, self.mean).to(self.dtype)
         pools = []
         for name, _, _ in _LAYERS:
             x = torch.relu(getattr(self, name)(x))

@@ -3,8 +3,9 @@
 Each wrapper has a plain PyTorch version in its own module.  Dispatch is by
 the device of the input alone: a CPU tensor takes the plain version; a CUDA
 tensor launches the kernel, or the wrapper raises.  Each wrapper counts its
-launches in an integer attribute ``launches``, incremented where it launches
-its kernel and nowhere else.
+launches by compute dtype in ``launches_by_dtype``, one added where it
+launches its kernel and nowhere else (K2-K4 launch their f32 or bf16 kernel;
+K1 and K1-bwd are f32 only).
 """
 
 from __future__ import annotations
@@ -26,11 +27,17 @@ KERNELS = {
 
 def reset_launches() -> None:
     for fn in KERNELS.values():
-        fn.launches = 0
+        fn.launches_by_dtype = {}
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """{kernel: launches in every dtype}."""
+    return {name: sum(fn.launches_by_dtype.values()) for name, fn in KERNELS.items()}
+
+
+def launch_counts_by_dtype() -> dict:
+    """{kernel: {"float32": n, "bfloat16": m}} (only the dtypes launched)."""
+    return {name: dict(fn.launches_by_dtype) for name, fn in KERNELS.items()}
 
 
 __all__ = [
@@ -39,6 +46,7 @@ __all__ = [
     "apply_rf_bwd",
     "encoder_stage2",
     "launch_counts",
+    "launch_counts_by_dtype",
     "lin_feature_stem",
     "reset_launches",
     "unet_stage2",

@@ -36,7 +36,9 @@ _SIGNATURES = {
     "shdr_apply_rf_f32": (_P, _P, _P, _I, ctypes.c_longlong, _I, _I, _P),
     "shdr_apply_rf_bwd_f32": (_P, _P, _P, _P, _P, _P, _I, ctypes.c_longlong, _I, _I, _P),
     "shdr_conv_gemm_f32": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "shdr_conv_gemm_bf16": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "shdr_lin_stem_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "shdr_lin_stem_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

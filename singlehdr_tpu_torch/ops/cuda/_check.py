@@ -10,11 +10,14 @@ import torch
 _count_lock = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches`` (wrappers run on the training loop's
-    feed threads and on autograd's device thread as well as the caller's)."""
+def count_launch(wrapper, dtype: torch.dtype = torch.float32) -> None:
+    """Add one to ``wrapper``'s count for ``dtype`` in ``wrapper.launches_by_dtype``
+    (wrappers run on the training loop's feed threads and on autograd's
+    device thread as well as the caller's)."""
     with _count_lock:
-        wrapper.launches += 1
+        by = wrapper.launches_by_dtype
+        name = str(dtype).removeprefix("torch.")
+        by[name] = by.get(name, 0) + 1
 
 
 def require(cond: bool, msg: str) -> None:
@@ -22,12 +25,29 @@ def require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def cuda_f32(name: str, t: torch.Tensor, device: torch.device, ndim: int) -> None:
-    """Raise unless ``t`` is a contiguous f32 tensor of rank ``ndim`` on ``device``."""
+def cuda_tensor(name: str, t: torch.Tensor, device: torch.device, ndim: int,
+                dtype: torch.dtype) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of rank ``ndim`` on ``device``."""
     require(t.device == device, f"{name}: on {t.device}, expected {device}")
-    require(t.dtype == torch.float32, f"{name}: dtype {t.dtype}, expected float32")
+    require(t.dtype == dtype, f"{name}: dtype {t.dtype}, expected {dtype}")
     require(t.dim() == ndim, f"{name}: rank {t.dim()}, expected {ndim}")
     require(t.is_contiguous(), f"{name}: must be contiguous")
+
+
+def cuda_f32(name: str, t: torch.Tensor, device: torch.device, ndim: int) -> None:
+    """``cuda_tensor`` in f32: K1 and K1-bwd are the LUT math, f32 in every
+    compute dtype, so a bf16 tensor reaching them is a missed cast."""
+    cuda_tensor(name, t, device, ndim, torch.float32)
+
+
+# the compute dtypes K2-K4 take: every operand in it but the f32 biases
+CONV_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def conv_dtype(name: str, x: torch.Tensor) -> torch.dtype:
+    """The compute dtype of a K2-K4 call, read from its input ``x``."""
+    require(x.dtype in CONV_DTYPES, f"{name}: dtype {x.dtype}, expected one of {CONV_DTYPES}")
+    return x.dtype
 
 
 def no_grad_needed(name: str, *tensors: torch.Tensor) -> None:

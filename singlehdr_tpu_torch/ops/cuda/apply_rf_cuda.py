@@ -100,6 +100,13 @@ def apply_rf_bwd_plain(x, rf, g, need_x: bool, need_rf: bool):
 
 def _check_launch(name: str, x: torch.Tensor, rf: torch.Tensor) -> tuple:
     require(x.device.type == "cuda", f"{name}: no kernel for device {x.device}")
+    return check_args(name, x, rf)
+
+
+def check_args(name: str, x: torch.Tensor, rf: torch.Tensor) -> tuple:
+    """K1's and K1-bwd's argument checks; returns (b, k).  Both are f32 in
+    every compute dtype (the nets hand ``apply_rf`` f32), so a bf16 tensor
+    here is a missed cast and raises."""
     cuda_f32(f"{name}: rf", rf, x.device, 2)
     require(x.dtype == torch.float32 and x.is_contiguous(), f"{name}: x must be contiguous float32")
     b, k = rf.shape
@@ -180,5 +187,5 @@ def apply_rf(x: torch.Tensor, rf: torch.Tensor) -> torch.Tensor:
     return ApplyRf.apply(x, rf)
 
 
-apply_rf.launches = 0
-apply_rf_bwd.launches = 0
+apply_rf.launches_by_dtype = {}
+apply_rf_bwd.launches_by_dtype = {}

@@ -3,9 +3,10 @@ BN-folded 7x7/2 stem in one pass.
 
 Replaces ``singlehdr_tpu/ops/pallas/lin_stem_pallas.py`` (``lin_feature_stem``),
 which kept the 93-channel stack out of HBM.  ``csrc/lin_stem.cu`` builds
-each block's features in shared memory, 8 channels at a time, and runs the
-stem over them as an implicit GEMM on the tensor cores in 3xTF32, so the
-stack never reaches device memory either.  The kernel applies the border
+each block's features in shared memory, a chunk of channels at a time, and
+runs the stem over them as an implicit GEMM on the tensor cores (3xTF32 for
+f32, one bf16 product for bf16), so the stack never reaches device memory
+either.  The kernel applies the border
 rules itself — Sobel REFLECT padding, the stack zero-padded as features,
 asymmetric SAME padding at stride 2 — so the TPU wrapper's border-ring
 recompute has no counterpart here.  Bound by the stem's multiply-adds
@@ -18,6 +19,14 @@ once into TF32 hi/lo planes; in a plane, channel ``cl``, receptive-field row
 ``ry`` and column ``rx`` sit at ``cl * CHANNEL_STRIDE + ry * ROW + (rx % 2) *
 PARITY_WIDTH + rx // 2``.  ``pack_stem_weights`` lays out B to match.
 
+bf16 (x, the folded kernel and the output bf16, the bias f32): chunks of 16
+channels (6), each k-step one tap x 16 channels, so an A register is the
+pair of channels (2q, 2q + 1) of one feature; the features are built in f32
+from the bf16 image and rounded once, into 8 planes of channel pairs (one
+bf16x2 word an entry, the f32 planes' word layout).  B is one bf16 plane in
+``conv_gemm``'s bf16 core matrices.  The plain version rounds where the
+kernel rounds: each feature, then the output.
+
 Layout: x [B, 3, H, W]; kernel OIHW [64, 93, 7, 7]; output NCHW.
 """
 
@@ -28,14 +37,20 @@ import torch.nn.functional as F
 
 from singlehdr_tpu_torch.ops.cuda import _build
 from singlehdr_tpu_torch.ops.cuda._check import (
+    conv_dtype,
     count_launch,
-    cuda_f32,
+    cuda_tensor,
     no_grad_needed,
     ptr,
     require,
     stream,
 )
-from singlehdr_tpu_torch.ops.cuda.conv_gemm import core_matrices, split_tf32
+from singlehdr_tpu_torch.ops.cuda.conv_gemm import (
+    cached_on,
+    core_matrices,
+    core_matrices_bf16,
+    split_tf32,
+)
 from singlehdr_tpu_torch.ops.histogram import N_FEATURES, linearization_features
 from singlehdr_tpu_torch.ops.resize import same_pads
 
@@ -46,27 +61,42 @@ FIELD = 2 * TILE + KSIZE - 2        # receptive field side, 37
 PARITY_WIDTH = (FIELD + 1) // 2     # 19
 ROW = 2 * PARITY_WIDTH              # 38
 CHANNEL_STRIDE = 1416               # >= FIELD * ROW, = 8 mod 32: bank-spread
-CHUNK = 8                           # channels a chunk
+CHUNK = 8                           # channels a chunk (f32)
 CHUNKS = -(-N_FEATURES // CHUNK)    # 12
 C_PAD = CHUNKS * CHUNK              # 96
+CHUNK_BF16 = 16                     # channels a chunk (bf16): one k-step of 16
+CHUNKS_BF16 = C_PAD // CHUNK_BF16   # 6
 SLICE_KSTEPS = 7                    # k-steps a slot of the B ring (one kernel row)
 RING_SLOTS = 4
 WARPS = 8
+ENTRY = {torch.float32: "shdr_lin_stem_f32", torch.bfloat16: "shdr_lin_stem_bf16"}
 
 
-def smem_bytes() -> int:
-    """Dynamic shared memory of a launch: B ring, hi/lo feature planes, image,
-    channel table."""
-    ring = RING_SLOTS * SLICE_KSTEPS * 2 * OUT_F * CHUNK
-    return 4 * (ring + 2 * CHUNK * CHANNEL_STRIDE + 3 * (FIELD + 2) ** 2 + 3 * C_PAD)
+def smem_bytes(dtype=torch.float32) -> int:
+    """Dynamic shared memory of a launch: B ring, feature planes (f32: hi and
+    lo of 8 channels; bf16: 8 planes of channel pairs), image, channel table."""
+    if dtype == torch.bfloat16:
+        ring_bytes = RING_SLOTS * SLICE_KSTEPS * OUT_F * CHUNK_BF16 * 2
+        planes = CHUNK_BF16 // 2
+    else:
+        ring_bytes = RING_SLOTS * SLICE_KSTEPS * 2 * OUT_F * CHUNK * 4
+        planes = 2 * CHUNK
+    return ring_bytes + 4 * (planes * CHANNEL_STRIDE + 3 * (FIELD + 2) ** 2 + 3 * C_PAD)
 
 
 def lin_feature_stem_plain(x, kernel7, bias):
-    """Plain version: ``relu(conv7x7/2_SAME(linearization_features(x)) + bias)``."""
+    """Plain version: ``relu(conv7x7/2_SAME(linearization_features(x)) + bias)``.
+    For bf16 x and kernel7 (f32 bias) it computes what the bf16 kernel
+    computes: the features in f32 from the bf16 image, each rounded to bf16
+    once, the conv in f32 on those values (exact products), and the output
+    rounded to bf16.  On the card it needs TF32 off."""
     feats = linearization_features(x)
     pt, pb = same_pads(x.shape[2], 7, 2)
     pl, pr = same_pads(x.shape[3], 7, 2)
     feats = F.pad(feats, (pl, pr, pt, pb))
+    if x.dtype == torch.bfloat16:
+        y = F.conv2d(feats.float(), kernel7.float(), bias, stride=2)
+        return F.relu(y).to(x.dtype)
     return F.relu(F.conv2d(feats, kernel7, bias, stride=2))
 
 
@@ -79,25 +109,42 @@ def stem_weight_planes(kernel7: torch.Tensor) -> tuple[torch.Tensor, torch.Tenso
     return split_tf32(b.reshape(-1, OUT_F))
 
 
+def stem_weight_rows_bf16(kernel7: torch.Tensor) -> torch.Tensor:
+    """bf16 [64, 93, 7, 7] -> B [CHUNKS_BF16 * 49 * 16, 64]: row
+    (j * 49 + ky * 7 + kx) * 16 + cl is channel j * 16 + cl at tap (ky, kx);
+    channels 93..95 are zero."""
+    w = F.pad(kernel7, (0, 0, 0, 0, 0, C_PAD - kernel7.shape[1]))
+    b = w.reshape(OUT_F, CHUNKS_BF16, CHUNK_BF16, KSIZE * KSIZE).permute(1, 3, 2, 0)
+    return b.reshape(-1, OUT_F)
+
+
 def pack_stem_weights(kernel7: torch.Tensor) -> torch.Tensor:
-    """The kernel's packed B: [1, CHUNKS, 49, plane, 8 (ng), 2 (kc), 8, 4],
-    conv_gemm's core-matrix layout with 392-deep chunks of 49 k-steps."""
+    """The kernel's packed B in conv_gemm's core-matrix layout, a chunk of 49
+    k-steps: f32 [1, CHUNKS, 49, plane (hi, lo), 8 (ng), 2 (kc), 8, 4] (392
+    deep); bf16 [1, CHUNKS_BF16, 49, 1, 8 (ng), 2 (kc), 8, 8] (784 deep)."""
+    if kernel7.dtype == torch.bfloat16:
+        return core_matrices_bf16(stem_weight_rows_bf16(kernel7), KSIZE * KSIZE * CHUNK_BF16,
+                                  OUT_F)
     hi, lo = stem_weight_planes(kernel7)
     return core_matrices(hi, lo, KSIZE * KSIZE * CHUNK, OUT_F)
 
 
-def lin_feature_stem(x, kernel7, bias):
-    """K3 wrapper: [B, 3, H, W] -> [B, 64, ceil(H/2), ceil(W/2)].
+def packed_stem_weights(kernel7: torch.Tensor) -> torch.Tensor:
+    """``pack_stem_weights(kernel7)``, kept on ``kernel7`` while its data and
+    version are unchanged.  The nets hand K3 the same folded tensor while the
+    stem's weight and bias and the four BN tensors are unchanged
+    (``models.linearization.CrfFeatureNet.folded_stem``), so the stem is
+    packed once."""
+    return cached_on(kernel7, "lin_stem_packed", (kernel7,), lambda: pack_stem_weights(kernel7))
 
-    ``kernel7`` [64, 93, 7, 7] / ``bias`` [64] are the BN-folded eval stem.
-    Plain version on the CPU, the kernel on the GPU.
-    """
-    if x.device.type == "cpu":
-        return lin_feature_stem_plain(x, kernel7, bias)
-    require(x.device.type == "cuda", f"lin_feature_stem: no kernel for device {x.device}")
-    cuda_f32("lin_feature_stem: x", x, x.device, 4)
-    cuda_f32("lin_feature_stem: kernel7", kernel7, x.device, 4)
-    cuda_f32("lin_feature_stem: bias", bias, x.device, 1)
+
+def check_stem(x, kernel7, bias) -> torch.dtype:
+    """K3's argument checks; returns the compute dtype.  x and kernel7 in one
+    dtype (f32 or bf16), the bias f32."""
+    dtype = conv_dtype("lin_feature_stem", x)
+    cuda_tensor("lin_feature_stem: x", x, x.device, 4, dtype)
+    cuda_tensor("lin_feature_stem: kernel7", kernel7, x.device, 4, dtype)
+    cuda_tensor("lin_feature_stem: bias", bias, x.device, 1, torch.float32)
     B, C, H, W = x.shape
     require(C == 3, f"lin_feature_stem: {C} input channels, expected 3")
     require(B > 0 and H > 0 and W > 0, f"lin_feature_stem: empty input {tuple(x.shape)}")
@@ -105,19 +152,33 @@ def lin_feature_stem(x, kernel7, bias):
             f"lin_feature_stem: kernel {tuple(kernel7.shape)} != {(OUT_F, N_FEATURES, 7, 7)}")
     require(tuple(bias.shape) == (OUT_F,), f"lin_feature_stem: bias must be [{OUT_F}]")
     no_grad_needed("lin_feature_stem", x, kernel7, bias)
+    return dtype
+
+
+def lin_feature_stem(x, kernel7, bias):
+    """K3 wrapper: [B, 3, H, W] -> [B, 64, ceil(H/2), ceil(W/2)].
+
+    ``kernel7`` [64, 93, 7, 7] / ``bias`` [64] are the BN-folded eval stem;
+    x and kernel7 f32 or bf16, bias f32; the output in x's dtype.  Plain
+    version on the CPU, the kernel on the GPU.
+    """
+    if x.device.type == "cpu":
+        return lin_feature_stem_plain(x, kernel7, bias)
+    require(x.device.type == "cuda", f"lin_feature_stem: no kernel for device {x.device}")
+    dtype = check_stem(x, kernel7, bias)
+    B, C, H, W = x.shape
     ho, wo = -(-H // 2), -(-W // 2)
     pad_t, _ = same_pads(H, 7, 2)
     pad_l, _ = same_pads(W, 7, 2)
     out = torch.empty((B, OUT_F, ho, wo), dtype=x.dtype, device=x.device)
-    # packed every call: the BN-folded kernel is a new tensor each forward
-    wpk = pack_stem_weights(kernel7)
+    wpk = packed_stem_weights(kernel7)
     with torch.cuda.device(x.device):
         _build.call(
-            "shdr_lin_stem_f32", ptr(x), ptr(wpk), ptr(bias), ptr(out),
+            ENTRY[dtype], ptr(x), ptr(wpk), ptr(bias), ptr(out),
             B, H, W, ho, wo, pad_t, pad_l, stream(x.device),
         )
-    count_launch(lin_feature_stem)
+    count_launch(lin_feature_stem, dtype)
     return out
 
 
-lin_feature_stem.launches = 0
+lin_feature_stem.launches_by_dtype = {}

@@ -3,6 +3,7 @@ checkouts on one card, in turns, so that two versions of the kernels are
 compared within one call.
 
   python3 -m singlehdr_tpu_torch.tools.kernel_ab PARENT . . PARENT [--out FILE]
+      [--dtype {float32,bfloat16}]
 
 Each argument is the root of a checkout (for the parent commit, a
 ``git archive`` unpacked into a git-ignored directory).  Each runs in its own
@@ -22,7 +23,10 @@ seeded pipeline, and times with that checkout's own ``chip_smoke`` helpers:
   batch 1 (20 runs) and batch 8 (8 runs), 512^2, and the per-net device times
   at batch 8.
 
-Prints one line per checkout and case, and all numbers as JSON to ``--out``.
+``--dtype bfloat16`` times the bf16 compute dtype throughout (the bf16 cases
+of K2-K4, the bf16 pipeline and joint step; K1 and K1-bwd stay f32): every
+checkout given must have it.  Prints one line per checkout and case, and all
+numbers as JSON to ``--out``.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import subprocess
 import sys
 
 WORKER = r'''
-import json, time
+import json, sys, time
 import numpy as np
 import torch
 import chip_smoke as cs
@@ -66,14 +70,26 @@ def device_ms(fn, iters):
     return start.elapsed_time(stop) / iters
 
 
-torch.backends.cudnn.allow_tf32 = False
-torch.backends.cuda.matmul.allow_tf32 = False
+try:
+    from singlehdr_tpu_torch.precision import use_full_f32
+except ImportError:  # a checkout from before the package set its precision itself
+    def use_full_f32():
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+use_full_f32()
+dtype = getattr(torch, sys.argv[1])
+typed = {} if dtype == torch.float32 else {"dtype": dtype}  # f32: any checkout's signature
 _build.lib()
 dev = torch.device("cuda", 0)
-pipe = build_pipeline(seed=cs.SEED, device=dev)
-out = {"card": cs.card_line(), "cases": [], "serving": {}, "per_net_ms_b8": {}, "joint_step_ms": None}
+pipe = build_pipeline(seed=cs.SEED, device=dev, **typed)
+f32_pipe = pipe if dtype == torch.float32 else build_pipeline(seed=cs.SEED, device=dev)
+out = {"card": cs.card_line(), "dtype": sys.argv[1], "cases": [], "serving": {}, "per_net_ms_b8": {},
+       "joint_step_ms": None}
 with torch.inference_mode():
-    for name, label, args in cs.kernel_cases(pipe, dev):
+    cases = cs.kernel_cases(f32_pipe, dev, *([dtype] if typed else []))
+    if typed:  # K1 stays f32
+        cases = [c for c in cs.kernel_cases(f32_pipe, dev) if c[0] == "apply_rf"] + cases
+    for name, label, args in cases:
         fn = getattr(kernels, name)
         out["cases"].append([name, label, device_ms(lambda: fn(*args), 20)])
 for i, (b, n) in enumerate(cs.BWD_SHAPES):
@@ -88,7 +104,7 @@ ldr, invcrf = batch[0].reshape(cs.TRAIN_BATCH, -1), batch[5].contiguous()
 g = torch.randn_like(ldr)
 out["cases"].append(["apply_rf_bwd grf only, step ldr", f"{tuple(ldr.shape)}",
                      device_ms(lambda: apply_rf_bwd(ldr, invcrf, g, False, True), 20)])
-state = init_multi_state(("deq", "lin", "hal"), 1e-5, seed=cs.SEED, device=dev)
+state = init_multi_state(("deq", "lin", "hal"), 1e-5, seed=cs.SEED, device=dev, **typed)
 vgg = Vgg16Features().to(dev)
 state.nets.train()
 step_ms = []
@@ -133,10 +149,10 @@ print("RESULT " + json.dumps(out))
 '''
 
 
-def run(root: str) -> dict:
+def run(root: str, dtype: str = "float32") -> dict:
     root = os.path.abspath(root)
     env = dict(os.environ, PYTHONPATH=root)
-    proc = subprocess.run([sys.executable, "-c", WORKER], cwd=root, env=env,
+    proc = subprocess.run([sys.executable, "-c", WORKER, dtype], cwd=root, env=env,
                           capture_output=True, text=True, timeout=1200)
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
     if proc.returncode != 0 or not lines:
@@ -148,16 +164,18 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("roots", nargs="+", help="checkout roots, timed in this order")
     p.add_argument("--out", help="also write the numbers to this JSON file")
+    p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                   help="compute dtype of the K2-K4 cases, the pipeline and the joint step")
     args = p.parse_args()
     results = []
     for root in args.roots:
-        r = run(root)
+        r = run(root, args.dtype)
         r["root"] = root
         results.append(r)
         sums = {}
         for name, _, ms in r["cases"]:
             sums[name] = sums.get(name, 0.0) + ms
-        print(f"{root}  [{r['card']}]", flush=True)
+        print(f"{root}  {r['dtype']}  [{r['card']}]", flush=True)
         for name, label, ms in r["cases"]:
             print(f"  {name:34s} {label:36s} {ms:.4f} ms", flush=True)
         print("  sums " + ", ".join(f"{k} {v:.4f} ms" for k, v in sums.items()) +

@@ -1,11 +1,17 @@
-"""Profile the serving forward on the card: where a batch's time goes.
+"""Profile the serving forward (or the joint train step) on the card: where a
+batch's time goes.
 
   python3 -m singlehdr_tpu_torch.tools.serve_trace [--batch 8] [--steps 3] [--out DIR]
+      [--dtype {float32,bfloat16}] [--train]
 
-Builds the seeded pipeline on the card (TF32 off), warms ``predict_batch`` at
-the batch size and 512^2, then records ``--steps`` batches with
-``torch.profiler`` (CPU and CUDA activities) and exports the chrome trace to
-``DIR/serve_trace.json``.  From the exported trace it prints, per batch: the
+Builds the seeded pipeline on the card in the compute ``--dtype`` (f32 with
+TF32 off by default), warms ``predict_batch`` at the batch size and 512^2,
+then records ``--steps`` batches with ``torch.profiler`` (CPU and CUDA
+activities) and exports the chrome trace to ``DIR/serve_trace.json``.  With
+``--train`` it records ``--steps`` joint train steps instead (deq + lin + hal
+in ``--dtype``, the f32 VGG loss, Adam; ``chip_smoke.joint_batch`` inputs at
+``--batch`` x ``--size``^2, e.g. ``--batch 16 --size 256``) into
+``DIR/train_trace.json``.  From the exported trace it prints, per batch: the
 span (first to last event of the recorded window), the device's busy time
 (the union of kernel, memcpy and memset intervals), the idle share, and the
 busy time by kind of kernel, then the ten kernels that took the most time.
@@ -91,12 +97,27 @@ def summarize(trace: dict, steps: int) -> dict:
     }
 
 
+def _train_steps(cs, dev, dtype, batch: int, size: int):
+    """One joint train step as a callable (warmed by the caller's first call)."""
+    from singlehdr_tpu_torch.models.vgg16 import Vgg16Features
+    from singlehdr_tpu_torch.train import steps
+    from singlehdr_tpu_torch.train.state import init_multi_state
+
+    state = init_multi_state(("deq", "lin", "hal"), 1e-5, seed=cs.SEED, device=dev, dtype=dtype)
+    step = steps.make_joint_train_step(Vgg16Features().to(dev), dtype)
+    inputs = cs.joint_batch(dev, batch, size, cs.SEED + 4)
+    return lambda: step(state, *inputs)
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--size", type=int, default=512)
     p.add_argument("--out", default="build/trace", help="directory of the exported trace")
+    p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                   help="the nets' compute dtype")
+    p.add_argument("--train", action="store_true", help="trace joint train steps instead")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("serve_trace: no CUDA device", file=sys.stderr)
@@ -107,26 +128,37 @@ def main() -> int:
     from singlehdr_tpu_torch.inference import HdrPredictor
     from singlehdr_tpu_torch.models import build_pipeline
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from singlehdr_tpu_torch.precision import use_full_f32
+
+    use_full_f32()
+    dtype = getattr(torch, args.dtype)
     dev = torch.device("cuda", 0)
-    predictor = HdrPredictor(build_pipeline(seed=cs.SEED, device=dev))
-    predictor.warmup([(args.size, args.size)], batch_sizes=(args.batch,))
-    rs = np.random.RandomState(cs.SEED + 2)
-    imgs = [rs.rand(args.size, args.size, 3).astype(np.float32) for _ in range(args.batch)]
-    predictor.predict_batch(imgs)
+    if args.train:
+        run = _train_steps(cs, dev, dtype, args.batch, args.size)
+    else:
+        predictor = HdrPredictor(build_pipeline(seed=cs.SEED, device=dev, dtype=dtype))
+        predictor.warmup([(args.size, args.size)], batch_sizes=(args.batch,))
+        rs = np.random.RandomState(cs.SEED + 2)
+        imgs = [rs.rand(args.size, args.size, 3).astype(np.float32) for _ in range(args.batch)]
+
+        def run():
+            predictor.predict_batch(imgs)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(args.steps):
-            predictor.predict_batch(imgs)
+            run()
         torch.cuda.synchronize()
     os.makedirs(args.out, exist_ok=True)
-    path = os.path.join(args.out, "serve_trace.json")
+    path = os.path.join(args.out, "train_trace.json" if args.train else "serve_trace.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
         summary = summarize(json.load(f), args.steps)
-    summary.update(card=cs.card_line(), batch=args.batch, size=args.size, steps=args.steps)
-    print(f"serving b{args.batch} @ {args.size}^2, {args.steps} batches [{summary['card']}]: "
+    summary.update(card=cs.card_line(), batch=args.batch, size=args.size, steps=args.steps,
+                   dtype=args.dtype, train=args.train)
+    what = "joint train step" if args.train else "serving"
+    print(f"{what} {args.dtype} b{args.batch} @ {args.size}^2, {args.steps} batches "
+          f"[{summary['card']}]: "
           f"span {summary['span_ms']:.2f} ms a batch, busy {summary['busy_ms']:.2f} ms, "
           f"idle share {100 * summary['idle_share']:.2f} %, "
           f"{summary['device_events']:.0f} device events a batch")

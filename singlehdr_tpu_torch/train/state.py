@@ -5,7 +5,9 @@ deq + lin + hal trio under one optimizer (joint training) or all four nets
 (finetune).  The nets sit in an ``nn.ModuleDict`` keyed 'deq'/'lin'/'hal'/
 'ref', the names of the pipeline's submodules, so its ``state_dict`` keys are
 the JAX multi-net parameter paths (``convert.py``).  Buffers (BatchNorm
-statistics, hal's ``preproc_mean``) stay out of the optimizer.
+statistics, hal's ``preproc_mean``) stay out of the optimizer.  The nets
+compute in the state's ``dtype`` (f32 or bf16) with f32 parameters, so Adam
+and its moments stay f32 in both.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from singlehdr_tpu_torch.models import (
     RefinementNet,
 )
 from singlehdr_tpu_torch.models.layers import keras_init_
+from singlehdr_tpu_torch.precision import use_full_f32
 
 # Keras Adam epsilon (the reference optimizer, tf_utils.py:172); torch's default is 1e-8.
 ADAM_EPS = 1e-7
@@ -56,17 +59,26 @@ class TrainState:
     def learning_rate(self) -> float:
         return self.optimizer.param_groups[0]["lr"]
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The nets' compute dtype."""
+        (dtype,) = {net.dtype for net in self.nets.values()}
+        return dtype
+
 
 def init_multi_state(names: Iterable[str], learning_rate: float, seed: int = 0,
-                     device="cuda") -> TrainState:
+                     device="cuda", dtype: torch.dtype = torch.float32) -> TrainState:
     """Keras-initialised nets (in sorted name order, from one seeded CPU
-    generator) in train mode on ``device``, under one Adam."""
+    generator) computing in ``dtype``, in train mode on ``device``, under one
+    Adam; f32 with TF32 off (``precision.use_full_f32``)."""
+    use_full_f32()
     generator = torch.Generator().manual_seed(seed)
-    nets = nn.ModuleDict({n: keras_init_(NETS[n](), generator) for n in sorted(names)})
+    nets = nn.ModuleDict({n: keras_init_(NETS[n](dtype), generator) for n in sorted(names)})
     nets.to(device).train()
     return TrainState(nets, make_optimizer(nets.parameters(), learning_rate))
 
 
-def init_net_state(name: str, learning_rate: float, seed: int = 0, device="cuda") -> TrainState:
+def init_net_state(name: str, learning_rate: float, seed: int = 0, device="cuda",
+                   dtype: torch.dtype = torch.float32) -> TrainState:
     """The state of one net, keyed by its name."""
-    return init_multi_state([name], learning_rate, seed, device)
+    return init_multi_state([name], learning_rate, seed, device, dtype)

@@ -17,6 +17,10 @@ function, takes ONE ``backward()`` of the summed loss and one
 ``optimizer.step()``; BatchNorm statistics update in the forward.  After it
 each parameter's ``.grad`` holds that step's gradient.  The loss functions
 are public so that a caller can time forward, backward and optimizer apart.
+
+Each factory takes the compute ``dtype``, as the JAX factories do; the nets
+of the state it is called with must compute in it (``init_*_state(dtype=...)``;
+a mismatch raises).  The nets return f32, so the losses are f32 in both.
 """
 
 from __future__ import annotations
@@ -121,8 +125,10 @@ def apply_gradients(state: TrainState, loss: torch.Tensor) -> None:
     state.step += 1
 
 
-def _step(loss_fn: Callable, *bound) -> Callable[..., StepOutput]:
+def _step(loss_fn: Callable, dtype: torch.dtype, *bound) -> Callable[..., StepOutput]:
     def train_step(state: TrainState, *batch) -> StepOutput:
+        if state.dtype != dtype:
+            raise ValueError(f"a {dtype} train step called on nets that compute in {state.dtype}")
         state.nets.train()
         loss, aux = loss_fn(state.nets, *bound, *batch)
         apply_gradients(state, loss)
@@ -131,26 +137,26 @@ def _step(loss_fn: Callable, *bound) -> Callable[..., StepOutput]:
     return train_step
 
 
-def make_deq_train_step():
+def make_deq_train_step(dtype: torch.dtype = torch.float32):
     """Dequantization pretraining: ``step(state, ldr, jpeg, mask)``."""
-    return _step(deq_loss)
+    return _step(deq_loss, dtype)
 
 
-def make_lin_train_step():
+def make_lin_train_step(dtype: torch.dtype = torch.float32):
     """Linearization pretraining: ``step(state, ldr, clipped_hdr_t, mask, invcrf_gt)``."""
-    return _step(lin_loss)
+    return _step(lin_loss, dtype)
 
 
-def make_hal_train_step(vgg):
+def make_hal_train_step(vgg, dtype: torch.dtype = torch.float32):
     """Hallucination pretraining: ``step(state, hdr_t, clipped_hdr_t, mask)``."""
-    return _step(hal_loss, vgg)
+    return _step(hal_loss, dtype, vgg)
 
 
-def make_joint_train_step(vgg):
+def make_joint_train_step(vgg, dtype: torch.dtype = torch.float32):
     """Joint deq + lin + hal: ``step(state, ldr, jpeg, clipped_hdr_t, hdr_t, mask, invcrf_gt)``."""
-    return _step(joint_loss, vgg)
+    return _step(joint_loss, dtype, vgg)
 
 
-def make_finetune_train_step():
+def make_finetune_train_step(dtype: torch.dtype = torch.float32):
     """All four nets on HDR-Real: ``step(state, ldr, hdr)``."""
-    return _step(finetune_loss)
+    return _step(finetune_loss, dtype)

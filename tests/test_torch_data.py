@@ -94,6 +94,18 @@ def test_jpeg_roundtrip_equal():
                                   jjpeg.jpeg_roundtrip_batch(batch, q))
 
 
+def test_jpeg_roundtrip_raises_without_a_codec(monkeypatch):
+    """With neither the native codec nor cv2 the round trip raises, naming
+    both, where it returned the batch unchanged (the JAX copy still does)."""
+    from singlehdr_tpu_torch.data import native_jpeg
+
+    monkeypatch.setattr(native_jpeg, "available", lambda: False)
+    monkeypatch.setattr(jpeg, "_HAS_CV2", False)
+    batch = np.zeros((2, 8, 8, 3), np.uint8)
+    with pytest.raises(RuntimeError, match="native libjpeg codec.*cv2"):
+        jpeg.jpeg_roundtrip_batch(batch, [50, 90])
+
+
 def test_utils_equal(tmp_path):
     for v in ("true", "F", "1", "no", True):
         assert utils.str2bool(v) == jutils.str2bool(v)

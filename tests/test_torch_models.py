@@ -44,11 +44,13 @@ def _two_threads():
     torch.set_num_threads(prev)
 
 
-def seeded_variables(module, sample_shape, seed=0):
-    """The JAX variable tree of ``module`` filled with seeded numpy values:
+def seeded_variables(module, sample_shape, seed=0, *more_shapes):
+    """The JAX variable tree of ``module`` (called on inputs of
+    ``sample_shape`` and ``more_shapes``) filled with seeded numpy values:
     glorot-range kernels, small biases, non-trivial BN statistics."""
     shapes = jax.eval_shape(
-        module.init, jax.random.PRNGKey(0), jnp.zeros(sample_shape, jnp.float32)
+        module.init, jax.random.PRNGKey(0),
+        *[jnp.zeros(s, jnp.float32) for s in (sample_shape, *more_shapes)]
     )
     rs = np.random.RandomState(seed)
 
@@ -126,6 +128,22 @@ def test_pipeline_matches_jax():
     )
     # CPU tensors never launch a kernel
     assert kernels.launch_counts() == {n: 0 for n in kernels.KERNELS}
+
+
+def test_constructors_turn_tf32_off():
+    """``build_pipeline`` and ``init_multi_state``/``init_net_state`` set the
+    package's precision policy (full f32 convolutions and matmuls), whatever
+    the caller's flags were."""
+    from singlehdr_tpu_torch.train.state import init_multi_state, init_net_state
+
+    for build in (lambda: tm.build_pipeline(seed=0, device="cpu"),
+                  lambda: init_multi_state(("deq",), 1e-4, device="cpu"),
+                  lambda: init_net_state("deq", 1e-4, device="cpu")):
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        build()
+        assert torch.backends.cudnn.allow_tf32 is False
+        assert torch.backends.cuda.matmul.allow_tf32 is False
 
 
 def test_build_pipeline_defaults_to_the_card(monkeypatch):
