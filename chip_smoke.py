@@ -10,10 +10,11 @@ dtype, and checks each path against the CPU plain path.
 Phases (each prints its own lines; any failure exits non-zero):
   1 device   card name and power limit (nvidia-smi); TF32 off, true f32
   2 build    nvcc build of singlehdr_tpu_torch/csrc into build/kernels/ (one
-             nvcc per source, in parallel); K2/K4's conv kernel and K3's
+             nvcc per source, in parallel); K2/K4's conv kernels and K3's
              kernel hold tensor-core instructions in their SASS: TF32 in the
              f32 instantiations, BF16 HGMMA (wgmma) and, for the 16-channel
-             stems, BF16 HMMA (mma.sync) in the bf16 ones; K3 HGMMA in both
+             stems, BF16 HMMA (mma.sync) in the bf16 ones; K3 HGMMA in both;
+             no bf16 conv instantiation spills (cuobjdump -res-usage)
   3 kernels  K1..K4 vs plain at batch 4, 576x576 (512 + the 32 px pad), K3 at
              an odd [1, 3, 37, 53] and K4 at an odd [1, 64, 37, 53] (the ceil
              edge of its SAME pool), in f32 and (K2-K4) in bf16: K1 bit-equal;
@@ -25,7 +26,8 @@ Phases (each prints its own lines; any failure exits non-zero):
              for K2 and K4; cuDNN's stride-2 conv over the stack built
              beforehand for K3) held to the plain versions and timed; K1,
              grid_sample and the bf16 K2-K4 also timed with the L2 flushed
-             before each call
+             before each call; each bf16 K2/K4 conv launch timed alone by
+             layer (ms, TFLOP/s, share of its bound)
   4 serving  seeded ReverseCameraPipeline on the card behind make_server;
              4 client threads POST 8 JPEG 512x512 images; f32, then bf16
              (build_pipeline(dtype=torch.bfloat16))
@@ -253,20 +255,24 @@ def cold_l2_ms(fn, iters: int = 10) -> float:
 
 
 def check_tensor_core_sass() -> None:
-    """Phase 2: K2/K4's conv kernel and K3's kernel run on the tensor cores:
-    every conv instantiation's SASS (cuobjdump of the built library) holds
-    HMMA (mma.sync) or HGMMA (wgmma) instructions, TF32 ones in the f32
-    instantiations and BF16 ones in the bf16 instantiations (template
-    argument ``Lb1``), with HGMMA in every bf16 one of 32 or 64 channels a
-    block and HMMA in the 16-channel stems; K3's kernel holds HGMMA in both
-    dtypes, of its own type."""
+    """Phase 2: K2/K4's conv kernels and K3's kernel run on the tensor cores,
+    and the bf16 convs do not spill.  In the SASS of the built library
+    (cuobjdump): every f32 conv instantiation (``conv_gemm_kernel``) holds
+    TF32 HMMA (mma.sync) or HGMMA (wgmma) instructions; every bf16 one
+    (``conv_gemm_bf16_kernel``) BF16 HGMMA where a block is 32 channels or
+    more and BF16 HMMA (or HGMMA) in the 16-channel stems; K3's kernel HGMMA
+    of its type in both dtypes (template argument ``Lb0``/``Lb1``).  In
+    ``cuobjdump -res-usage``: every bf16 conv instantiation has no stack
+    frame and no local memory, so no spill stores."""
+    import re
     from pathlib import Path
 
     from singlehdr_tpu_torch.ops.cuda import _build
 
     tool = Path(_build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass", str(_build.build())], capture_output=True,
-                          text=True, check=True).stdout
+    lib = str(_build.build())
+    sass = subprocess.run([str(tool), "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
     functions = [(f.split()[0], f) for f in sass.split("Function : ")[1:]]
 
     def mma(body: str, kind: str, precision: str) -> int:
@@ -277,24 +283,37 @@ def check_tensor_core_sass() -> None:
             return sum(".BF16" in ln for ln in lines)
         return sum(".BF16" not in ln for ln in lines)
 
-    for kernel in ("conv_gemm_kernel", "lin_stem_kernel"):
-        for flag, precision in (("ILb0E", "TF32"), ("ILb1E", "BF16")):
-            insts = [(name, body) for name, body in functions if kernel in name and flag in name]
-            counts = [(mma(body, "HMMA", precision), mma(body, "HGMMA", precision), name)
-                      for name, body in insts]
-            print(f"  {kernel} {precision}: {len(insts)} instantiation(s); HMMA.{precision} "
-                  f"{sum(c[0] for c in counts)}, HGMMA.{precision} {sum(c[1] for c in counts)}",
-                  flush=True)
-            if not insts or not all(h + g > 0 for h, g, _ in counts):
-                raise AssertionError(f"{kernel}: a {precision} instantiation without {precision} "
-                                     "tensor-core instructions in its SASS")
-            for hmma, hgmma, name in counts:
-                stem = "ELi16ELNS" in name  # BN = 16: the mma.sync path
-                if kernel == "lin_stem_kernel" and not hgmma:
-                    raise AssertionError(f"K3 ({precision}) has no HGMMA in its SASS")
-                if kernel == "conv_gemm_kernel" and precision == "BF16" and not (
-                        hmma if stem else hgmma):
-                    raise AssertionError(f"{name}: no {'HMMA' if stem else 'HGMMA'}.BF16")
+    kinds = (("conv_gemm_kernel", "", "TF32"), ("conv_gemm_bf16_kernel", "", "BF16"),
+             ("lin_stem_kernel", "ILb0E", "TF32"), ("lin_stem_kernel", "ILb1E", "BF16"))
+    for kernel, flag, precision in kinds:
+        insts = [(name, body) for name, body in functions
+                 if f"{kernel}I" in name and flag in name]
+        counts = [(mma(body, "HMMA", precision), mma(body, "HGMMA", precision), name)
+                  for name, body in insts]
+        print(f"  {kernel} {precision}: {len(insts)} instantiation(s); HMMA.{precision} "
+              f"{sum(c[0] for c in counts)}, HGMMA.{precision} {sum(c[1] for c in counts)}",
+              flush=True)
+        if not insts or not all(h + g > 0 for h, g, _ in counts):
+            raise AssertionError(f"{kernel}: a {precision} instantiation without {precision} "
+                                 "tensor-core instructions in its SASS")
+        for hmma, hgmma, name in counts:
+            stem = "ELi16ELNS" in name  # BN = 16
+            if kernel == "lin_stem_kernel" and not hgmma:
+                raise AssertionError(f"K3 ({precision}) has no HGMMA in its SASS")
+            if kernel == "conv_gemm_bf16_kernel" and not (hmma + hgmma if stem else hgmma):
+                raise AssertionError(f"{name}: no {'HMMA' if stem else 'HGMMA'}.BF16")
+
+    usage = subprocess.run([str(tool), "-res-usage", lib], capture_output=True, text=True,
+                           check=True).stdout
+    rows = re.findall(r"Function (\S+):\s+REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)", usage)
+    bf16 = [(name, int(reg), int(stack), int(local)) for name, reg, stack, local in rows
+            if "conv_gemm_bf16_kernel" in name]
+    spilled = [name for name, _, stack, local in bf16 if stack or local]
+    print(f"  conv_gemm_bf16_kernel: {len(bf16)} instantiation(s), registers "
+          f"{min(r for _, r, _, _ in bf16)}-{max(r for _, r, _, _ in bf16)}, "
+          f"{len(spilled)} with a stack frame or local memory (spill stores)", flush=True)
+    if not bf16 or spilled:
+        raise AssertionError(f"bf16 conv instantiations that spill: {spilled or 'none found'}")
 
 
 def kernel_cases(pipe, dev, dtype=torch.float32):
@@ -416,6 +435,31 @@ def two_launch_bound_ms(name: str, args, want, dtype) -> float:
     return conv1 + conv2
 
 
+def conv_launches(name: str, args) -> list:
+    """The two conv launches of one K2/K4 stage call, each as (conv, fn, FLOP,
+    bytes moved): conv1 reads x and stores conv1's activation (NCHW in f32,
+    channel-blocked in bf16), conv2 reads it and stores the skip and the
+    pool, into buffers made here.  Called outside the stage wrapper, they add
+    nothing to its launch count."""
+    from singlehdr_tpu_torch.ops.cuda import conv_gemm
+
+    x, w1, b1, w2, b2 = args
+    b, c, h, w = x.shape
+    f, _, k, _ = w1.shape
+    if name == "unet_stage2":
+        modes, ph, pw = (conv_gemm.LEAKY_STORE, conv_gemm.LEAKY_AVG_POOL), h // 2, w // 2
+    else:
+        modes, ph, pw = (conv_gemm.RELU_STORE, conv_gemm.RELU_MAX_POOL), (h + 1) // 2, (w + 1) // 2
+    mid = conv_gemm.mid_like(x, f)
+    act = torch.empty((b, f, h, w), dtype=x.dtype, device=x.device)
+    pooled = torch.empty((b, f, ph, pw), dtype=x.dtype, device=x.device)
+    macs = 2.0 * b * h * w * f * k * k
+    return [("conv1", lambda: conv_gemm.conv_gemm(x, w1, b1, mid, None, modes[0]), macs * c,
+             nbytes((x, w1, b1, mid))),
+            ("conv2", lambda: conv_gemm.conv_gemm(mid, w2, b2, act, pooled, modes[1]), macs * f,
+             nbytes((mid, w2, b2, act, pooled)))]
+
+
 def conv_stage_library(name: str, x, w1, b1, w2, b2) -> tuple:
     """K2's or K4's function as PyTorch calls in x's dtype (the library route
     for bf16: cuDNN's bf16 convs, bias in bf16, and the pool, all in bf16)."""
@@ -529,8 +573,12 @@ def check_kernels(pipe, dev) -> dict:
     report = {}
     for dtype in (torch.float32, torch.bfloat16):
         suffix = "_bf16" if dtype == torch.bfloat16 else ""
+        # made outside inference mode, so that the kernels' weight packing is
+        # cached on the bf16 weights as it is on a net's (``cached_on``)
+        with torch.no_grad():
+            cases = kernel_cases(pipe, dev, dtype)
         with torch.inference_mode():
-            for name, label, args in kernel_cases(pipe, dev, dtype):
+            for name, label, args in cases:
                 kernel, ref = plain[name]
                 got, want = kernel(*args), ref(*args)
                 torch.cuda.synchronize()
@@ -612,6 +660,13 @@ def check_kernels(pipe, dev) -> dict:
                       f"{bound_ms:.4f} ms ({bound_by}; {other})  share {bound_ms / ms:.1%}  "
                       f"{flop / 1e9:.1f} GFLOP {moved / 1e6:.1f} MB  {flop / ms / 1e9:.1f} TFLOP/s"
                       f"{library}", flush=True)
+                if dtype == torch.bfloat16 and name in KERNEL_LAUNCHES_PER_STAGE:
+                    for conv, fn, conv_flop, conv_moved in conv_launches(name, args):
+                        conv_ms = device_ms(fn)
+                        conv_bound = bound(conv_flop, conv_moved, dtype)[0]
+                        print(f"    {label} {conv}: {conv_ms:.4f} ms  {conv_flop / conv_ms / 1e9:.1f} "
+                              f"TFLOP/s  bound {conv_bound:.4f} ms  share {conv_bound / conv_ms:.1%}",
+                              flush=True)
         torch.cuda.synchronize()
     return report
 

@@ -1,12 +1,13 @@
 // The bf16 tensor-core primitives of the port's implicit-GEMM kernels
 // (csrc/conv2_pool.cu: K2 and K4; csrc/lin_stem.cu: K3): wgmma.mma_async
-// m64nNk16 bf16 with A from registers and B from shared memory through a
-// descriptor, mma.sync m16n8k16 bf16, and the packing of two bf16 into one
-// A register.  One product a multiply-add, accumulated in f32: 989 TFLOP/s
-// dense.  The descriptor, the wgmma fence/commit/wait and the cp.async
-// copies are tf32_mma.cuh's: a bf16 core matrix (8 n x 8 k) is 8 rows of 16
-// bytes, the same bytes as a TF32 one (8 n x 4 k), so B's shared-memory
-// layout and descriptor strides carry over unchanged.
+// m64nNk16 bf16 with A from registers (K3) or from shared memory (K2/K4),
+// B from shared memory, both through descriptors; mma.sync m16n8k16 bf16
+// with its fragments loaded by ldmatrix; the packing of two bf16 into one A
+// register; and the 16-byte zero-filling cp.async that stages K2/K4's
+// channel-inner tiles.  One product a multiply-add, accumulated in f32: 989
+// TFLOP/s dense.  The wgmma fence/commit/wait, B's descriptor and the other
+// cp.async copies are tf32_mma.cuh's: a bf16 core matrix (8 rows x 8 k) is 8
+// rows of 16 bytes, the same bytes as a TF32 one (8 rows x 4 k).
 //
 // Register layouts (PTX ISA, wgmma .bf16 A fragment and mma m16n8k16):
 //   A: a0 = (row g, k 2t, 2t+1), a1 = (g + 8, 2t, 2t+1), a2 = (g, 2t+8, 2t+9),
@@ -14,6 +15,11 @@
 //   B (mma.sync): b0 = (k 2t, 2t+1; n g), b1 = (k 2t+8, 2t+9; n g)
 //   D: as in TF32, d[4 nt + i] = (row g + 8 (i >> 1), n 8 nt + 2t + (i & 1))
 // with g = lane / 4, t = lane % 4 (and rows + 16 per warp of a warpgroup).
+// ldmatrix .x4 hands lane (g, t) the 4-byte word (row g, k 2t, 2t+1) of each
+// of four 8 x 8 matrices, whose 8 row addresses (16 bytes each) come from
+// lanes 8q .. 8q + 7 for matrix q: A's a0..a3 for matrices (rows 0-7, k 0-7),
+// (rows 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15), and B's b0, b1
+// for (n, k 0-7), (n, k 8-15) with rows = n.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -31,32 +37,10 @@ __device__ __forceinline__ uint32_t pack_bf16(uint16_t lo, uint16_t hi) {
 }
 
 // wgmma.mma_async m64nNk16 bf16: A (64 x 16) from registers, B (N x 16,
-// K-major, no transpose) from shared memory through a descriptor; d += A * B^T.
+// K-major, no transpose) from shared memory through a descriptor; d += A * B^T
+// (K3's N = 64).
 template <int N>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc);
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<16>(float (&d)[8], const uint32_t (&a)[4],
-                                              uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16], const uint32_t (&a)[4],
-                                              uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
-}
 
 template <>
 __device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], const uint32_t (&a)[4],
@@ -79,6 +63,61 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4], uint3
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ldmatrix .x4 (no transpose): four 8 x 8 b16 matrices, row addresses from
+// lanes 8q .. 8q + 7 for matrix q (``addr``: this lane's row, shared space)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// 16-byte copy; ``valid`` false writes 16 zero bytes (SAME padding) and reads
+// nothing
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// A shared-memory matrix descriptor, no swizzle, K-major: core matrices of 8
+// rows x 16 bytes (each row 16 bytes after the one before), the core holding
+// k 8..15 ``lead`` bytes after the one holding k 0..7, and the next 8 rows
+// ``stride`` bytes on.  Start, lead and stride are multiples of 16 bytes
+// below 256 KB (14-bit fields in 16-byte units).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lead, uint32_t stride) {
+  return ((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lead >> 4) << 16) |
+         (static_cast<uint64_t>(stride >> 4) << 32);
+}
+
+// wgmma.mma_async m64nNk16 bf16, both operands from shared memory through
+// descriptors (A 64 x 16 and B N x 16, K-major, no transpose); d += A * B^T.
+template <int N>
+__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[N / 2], uint64_t a_desc, uint64_t b_desc);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_ss<32>(float (&d)[16], uint64_t a_desc, uint64_t b_desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a_desc), "l"(b_desc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_ss<64>(float (&d)[32], uint64_t a_desc, uint64_t b_desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a_desc), "l"(b_desc));
 }
 
 }  // namespace

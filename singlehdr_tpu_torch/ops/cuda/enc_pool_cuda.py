@@ -6,9 +6,10 @@ kept in VMEM.  It is the same kernel as K2 (``csrc/conv2_pool.cu``: an
 implicit GEMM conv on the tensor cores, 3xTF32 for f32 and one bf16 product
 for bf16, two launches a stage) with ReLU and a SAME max pool over the
 in-image members, written from registers.  enc2's 128 channels run as two
-64-channel blocks per tile.  In bf16 conv1's activation and the skip are
-rounded to bf16 and the max pool is taken of the rounded skip (rounding is
-monotone, so pooling first gives the same values).
+64-channel blocks per tile.  In
+bf16 conv1's activation (stored channel-blocked, ``conv_gemm.mid_like``) and
+the skip are rounded to bf16 and the max pool is taken of the rounded skip
+(rounding is monotone, so pooling first gives the same values).
 
 Layout: NCHW activations, OIHW weights.
 """
@@ -48,8 +49,8 @@ def encoder_stage2(x, w1, b1, w2, b2):
         return encoder_stage2_plain(x, w1, b1, w2, b2)
     require(x.device.type == "cuda", f"encoder_stage2: no kernel for device {x.device}")
     B, C, H, W, Fo, _ = check_stage("encoder_stage2", x, w1, b1, w2, b2, (3,))
-    mid = torch.empty((B, Fo, H, W), dtype=x.dtype, device=x.device)
-    skip = torch.empty_like(mid)
+    mid = conv_gemm.mid_like(x, Fo)
+    skip = torch.empty((B, Fo, H, W), dtype=x.dtype, device=x.device)
     pooled = torch.empty(
         (B, Fo, (H + 1) // 2, (W + 1) // 2), dtype=x.dtype, device=x.device
     )

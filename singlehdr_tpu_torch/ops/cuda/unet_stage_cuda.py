@@ -9,7 +9,8 @@ complete 2x2 pool from registers.  f32 tensors run in 3xTF32 (bound by the
 f32-accurate multiply-adds at 165 TFLOP/s); bf16 tensors (x, w1, w2 bf16,
 biases f32) in one bf16 product with f32 accumulation (989 TFLOP/s, where the
 HBM traffic of mid, skip and pool comes close).  conv1's activation costs a
-write and a read of HBM.
+write and a read of HBM; in bf16 it is stored channel-blocked
+(``conv_gemm.mid_like``), which conv2 stages with 16-byte copies.
 
 The bf16 stage rounds where the Pallas kernel rounds: conv1's activation to
 bf16 before conv2 reads it, the skip to bf16, and the average pool taken from
@@ -92,8 +93,8 @@ def unet_stage2(x, w1, b1, w2, b2):
         return unet_stage2_plain(x, w1, b1, w2, b2)
     require(x.device.type == "cuda", f"unet_stage2: no kernel for device {x.device}")
     B, C, H, W, Fo, K = check_stage("unet_stage2", x, w1, b1, w2, b2, KERNEL_SIZES)
-    mid = torch.empty((B, Fo, H, W), dtype=x.dtype, device=x.device)
-    act = torch.empty_like(mid)
+    mid = conv_gemm.mid_like(x, Fo)
+    act = torch.empty((B, Fo, H, W), dtype=x.dtype, device=x.device)
     pooled = torch.empty((B, Fo, H // 2, W // 2), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         conv_gemm.conv_gemm(x, w1, b1, mid, None, conv_gemm.LEAKY_STORE)

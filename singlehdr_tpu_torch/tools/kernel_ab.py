@@ -12,7 +12,8 @@ seeded pipeline, and times with that checkout's own ``chip_smoke`` helpers:
 
 - every K1..K4 case of ``chip_smoke.kernel_cases`` at batch 4, 576^2 (CUDA
   events over 20 launches after a warm-up, the host kept ahead by a sleep
-  kernel, the same code for every checkout);
+  kernel, the same code for every checkout), and each K2/K4 case's two conv
+  launches alone, by layer (``<kernel> conv``);
 - K1-bwd on ``chip_smoke`` phase 8's inputs (``k1_bwd_inputs`` at
   ``BWD_SHAPES``), gx + grf and grf only, warm as above and with the L2
   flushed before each call (``chip_smoke.cold_l2_ms``), and grf only on the
@@ -21,7 +22,9 @@ seeded pipeline, and times with that checkout's own ``chip_smoke`` helpers:
   after 2, CUDA events, ``chip_smoke.joint_batch`` inputs);
 - the serving numbers of ``chip_smoke`` phase 7: p50 of ``predict_batch`` at
   batch 1 (20 runs) and batch 8 (8 runs), 512^2, and the per-net device times
-  at batch 8.
+  at batch 8;
+- a digest of the f32 K2/K4 conv kernels' SASS (``cuobjdump``), equal for
+  two checkouts whose f32 kernels compiled to the same instructions.
 
 ``--dtype bfloat16`` times the bf16 compute dtype throughout (the bf16 cases
 of K2-K4, the bf16 pipeline and joint step; K1 and K1-bwd stay f32): every
@@ -85,13 +88,69 @@ pipe = build_pipeline(seed=cs.SEED, device=dev, **typed)
 f32_pipe = pipe if dtype == torch.float32 else build_pipeline(seed=cs.SEED, device=dev)
 out = {"card": cs.card_line(), "dtype": sys.argv[1], "cases": [], "serving": {}, "per_net_ms_b8": {},
        "joint_step_ms": None}
-with torch.inference_mode():
+
+
+def f32_conv_sass_digest():
+    """sha256 of the SASS bodies of K2/K4's f32 conv instantiations, ordered by
+    (kernel size, N block, mode), so that two checkouts whose f32 kernels
+    compiled to the same instructions read alike (the template arguments
+    other than these, and the function names, are left out)."""
+    import hashlib, re, subprocess
+    from pathlib import Path
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(_build.build())], capture_output=True, text=True,
+                          check=True).stdout
+    bodies = []
+    for fn in sass.split("Function : ")[1:]:
+        name, body = fn.split("\n", 1)
+        # f32 (where one template serves both dtypes, its bf16 instantiations carry Lb1)
+        if "conv_gemm_kernelI" in name and "ILb1E" not in name:
+            ks, bn = map(int, re.findall(r"Li(\d+)E", name)[:2])
+            mode = int(re.search(r"ModeE(\d)", name).group(1))
+            bodies.append(((ks, bn, mode), body))
+    h = hashlib.sha256()
+    for _, body in sorted(bodies):
+        h.update(body.encode())
+    return f"{h.hexdigest()[:16]} ({len(bodies)} instantiations)"
+
+
+out["f32_conv_sass"] = f32_conv_sass_digest()
+
+
+def conv_launches(name, args):
+    """The two conv launches of a K2/K4 stage call, into buffers made here
+    (conv1's activation channel-blocked where the checkout's bf16 conv1
+    stores it so, ``conv_gemm.mid_like``)."""
+    from singlehdr_tpu_torch.ops.cuda import conv_gemm
+    x, w1, b1, w2, b2 = args
+    b, c, h, w = x.shape
+    f = w1.shape[0]
+    if name == "unet_stage2":
+        modes, ph, pw = (conv_gemm.LEAKY_STORE, conv_gemm.LEAKY_AVG_POOL), h // 2, w // 2
+    else:
+        modes, ph, pw = (conv_gemm.RELU_STORE, conv_gemm.RELU_MAX_POOL), (h + 1) // 2, (w + 1) // 2
+    mid_like = getattr(conv_gemm, "mid_like", None)
+    mid = mid_like(x, f) if mid_like else torch.empty((b, f, h, w), dtype=x.dtype, device=x.device)
+    act = torch.empty((b, f, h, w), dtype=x.dtype, device=x.device)
+    pooled = torch.empty((b, f, ph, pw), dtype=x.dtype, device=x.device)
+    return [("conv1", lambda: conv_gemm.conv_gemm(x, w1, b1, mid, None, modes[0])),
+            ("conv2", lambda: conv_gemm.conv_gemm(mid, w2, b2, act, pooled, modes[1]))]
+
+
+# the cases are made outside inference mode, so that the bf16 weights keep
+# their packing (the conv kernels cache it on a weight that is not an
+# inference tensor), as a net's cast weights do
+with torch.no_grad():
     cases = cs.kernel_cases(f32_pipe, dev, *([dtype] if typed else []))
     if typed:  # K1 stays f32
         cases = [c for c in cs.kernel_cases(f32_pipe, dev) if c[0] == "apply_rf"] + cases
+with torch.inference_mode():
     for name, label, args in cases:
         fn = getattr(kernels, name)
         out["cases"].append([name, label, device_ms(lambda: fn(*args), 20)])
+        if name in ("unet_stage2", "encoder_stage2"):  # each conv launch alone, by layer
+            for conv, launch in conv_launches(name, args):
+                out["cases"].append([name + " conv", f"{label} {conv}", device_ms(launch, 20)])
 for i, (b, n) in enumerate(cs.BWD_SHAPES):
     x, rf, g = cs.k1_bwd_inputs(dev, b, n, cs.SEED + i)
     for name, want in (("apply_rf_bwd", (True, True)), ("apply_rf_bwd grf only", (False, True))):
@@ -175,7 +234,7 @@ def main() -> int:
         sums = {}
         for name, _, ms in r["cases"]:
             sums[name] = sums.get(name, 0.0) + ms
-        print(f"{root}  {r['dtype']}  [{r['card']}]", flush=True)
+        print(f"{root}  {r['dtype']}  [{r['card']}]  f32 conv SASS {r['f32_conv_sass']}", flush=True)
         for name, label, ms in r["cases"]:
             print(f"  {name:34s} {label:36s} {ms:.4f} ms", flush=True)
         print("  sums " + ", ".join(f"{k} {v:.4f} ms" for k, v in sums.items()) +

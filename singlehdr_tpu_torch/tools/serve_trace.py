@@ -32,7 +32,7 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # kernel name fragment -> kind, first match wins
 KINDS = (
     ("apply_rf", "hand K1"),
-    ("conv_gemm_kernel", "hand K2 + K4"),
+    ("conv_gemm", "hand K2 + K4"),  # conv_gemm_kernel (f32), conv_gemm_bf16_kernel
     ("lin_stem_kernel", "hand K3"),
     ("fft", "cuDNN FFT convs"),
     ("xmma", "cuDNN convs"),

@@ -635,21 +635,46 @@ MAIN_PATH_CONVS = [(3, 16, 7), (9, 16, 7), (16, 16, 7), (16, 32, 5), (32, 32, 5)
 
 
 def test_bf16_plan_pads_k_to_a_multiple_of_16():
-    want = {(3, 16, 7): (16, 3, 160), (9, 16, 7): (16, 9, 448), (16, 16, 7): (16, 16, 784),
-            (16, 32, 5): (32, 16, 400), (32, 64, 3): (64, 16, 144), (3, 64, 3): (64, 3, 32)}
+    """bf16 K2/K4: k-steps of one tap x 16 channels (two planes), or of four
+    taps of a kernel row x 4 channels (C = 3: one plane of pixel-pair rows,
+    each kernel row padded to a multiple of 4 taps); K is 16 a k-step."""
+    want = {(3, 16, 7): (16, 4, 16 * 14), (9, 16, 7): (16, 16, 16 * 49),
+            (16, 16, 7): (16, 16, 16 * 49), (16, 32, 5): (32, 16, 16 * 25),
+            (32, 64, 3): (64, 16, 16 * 9), (3, 64, 3): (64, 4, 16 * 3),
+            (64, 128, 3): (64, 16, 16 * 9)}
     for (c, f, k), plan in want.items():
         assert cg.conv_plan(c, f, k, BF16) == plan
     for c, f, k in MAIN_PATH_CONVS:
         bn, cc, kc_pad = cg.conv_plan(c, f, k, BF16)
-        assert kc_pad % 16 == 0 and cc * k * k <= kc_pad < cc * k * k + 16
+        assert kc_pad % 16 == 0 and kc_pad >= cc * k * k
         assert cg.supported(c, f, k, BF16) is None
-        # a bf16 plan needs at most the shared memory of the f32 one
-        assert cg.smem_bytes(c, f, k, BF16) <= cg.smem_bytes(c, f, k)
+    assert cg.supported(24, 64, 3, BF16) is not None  # neither <= 16 nor a multiple of 16
     # the f32 plan is unchanged: k-steps of 8
     assert cg.conv_plan(3, 16, 7) == (16, 3, 152)
     # K3: 6 chunks of 16 channels, 49 k-steps of one tap each (K 784 a chunk)
     assert k3.CHUNKS_BF16 * k3.CHUNK_BF16 == k3.C_PAD == 96
     assert k3.smem_bytes(BF16) < k3.smem_bytes() <= cg.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("c,f,k", MAIN_PATH_CONVS)
+def test_bf16_plan_fits_the_card(c, f, k):
+    """Every bf16 layer of the main path: the ring (and conv2's skip and pool
+    tiles) fits a block's shared memory and the blocks an SM fit its 228 KB
+    (1 KB reserved each); the A
+    descriptors' lead, stride and every start address fit their 14-bit fields
+    in 16-byte units; conv2's blocked reads take 16-channel chunks."""
+    p = cg.plan_bf16(c, f, k)
+    assert p["smem_bytes"] <= p["pool_smem_bytes"] <= cg.SMEM_LIMIT
+    assert p["blocks_per_sm"] * (p["pool_smem_bytes"] + cg.BLOCK_RESERVED) <= cg.SM_SMEM
+    assert p["pool_smem_bytes"] >= p["bn"] * (p["skip_stride"] + p["pool_stride"]) * 2
+    assert p["stages"] == min(p["chunks"], cg.RING_BF16) and f % p["bn"] == 0
+    for field in (p["lead_bytes"], p["stride_bytes"], p["smem_bytes"]):
+        assert field % 16 == 0 and field >> 4 < 2 ** 14
+    assert p["slot_bytes"] % 16 == 0 and p["w_bytes"] == p["kc_pad"] * p["bn"] * 2
+    if c % 16 == 0:
+        assert p["planes"] == 2 and p["chunks"] == c // 16
+    else:
+        assert p["chunks"] == 1 and p["cc"] >= c
 
 
 def _bits(t):
@@ -676,16 +701,17 @@ def test_bf16_pack_is_the_wgmma_b_layout(c, f, k):
     rs = np.random.RandomState(c + f + k)
     w = torch.from_numpy(rs.randn(f, c, k, k).astype(np.float32)).to(BF16)
     bn, cc, kc_pad = cg.conv_plan(c, f, k, BF16)
-    rows = cg.weight_rows(w, cc, kc_pad)
-    assert rows.dtype == BF16 and rows.shape == ((c // cc) * kc_pad, f)
+    chunks = -(-c // cc)
+    rows = cg.weight_rows_bf16(w, cc)
+    assert rows.dtype == BF16 and rows.shape == (chunks * kc_pad, f)
     pk = cg.pack_weights(w)
     assert pk.dtype == BF16
-    assert pk.shape == (f // bn, c // cc, kc_pad // 16, 1, bn // 8, 2, 8, 8)
+    assert pk.shape == (f // bn, chunks, kc_pad // 16, 1, bn // 8, 2, 8, 8)
     assert cg.packed_weights(w) is cg.packed_weights(w)
-    flat = _bits(pk).reshape(f // bn, c // cc, -1)
+    flat = _bits(pk).reshape(f // bn, chunks, -1)
     want = _bits(rows)
     for nblk in range(f // bn):
-        for j in range(c // cc):
+        for j in range(chunks):
             for ks in range(kc_pad // 16):
                 block = flat[nblk, j, ks * bn * 16:(ks + 1) * bn * 16]
                 np.testing.assert_array_equal(
@@ -694,21 +720,22 @@ def test_bf16_pack_is_the_wgmma_b_layout(c, f, k):
 
 
 def test_bf16_mma_sync_b_words_hold_the_ptx_fragment():
-    """The BN = 16 path reads b0 = word 64 nt + lane and b1 = word 64 nt + 32
-    + lane of a k-step's block: b0 holds B[2t][g] (low half) and B[2t+1][g],
-    b1 B[2t+8][g] and B[2t+9][g], in n8 tile nt (mma.sync m16n8k16 .bf16)."""
+    """The BN = 16 path loads a k-step's B by ldmatrix.x4 with lane L's row
+    at byte 16 L of the k-step's block: registers 0, 1 (2, 3) are b0, b1 of
+    n8 tile 0 (1), b0 holding B[2t][g] (low half) and B[2t+1][g], b1
+    B[2t+8][g] and B[2t+9][g] (mma.sync m16n8k16 .bf16)."""
     rs = np.random.RandomState(3)
     w = torch.from_numpy(rs.randn(16, 16, 7, 7).astype(np.float32)).to(BF16)
     bn, cc, kc_pad = cg.conv_plan(16, 16, 7, BF16)
-    rows = _bits(cg.weight_rows(w, cc, kc_pad))
-    words = _bits(cg.pack_weights(w)).reshape(-1).view(np.uint32)
+    rows = _bits(cg.weight_rows_bf16(w, cc))
+    flat = _bits(cg.pack_weights(w)).reshape(-1)
     lane = np.arange(32)
     g, t = lane >> 2, lane & 3
     for ks in (0, 17, kc_pad // 16 - 1):
-        blk = words[ks * bn * 8:(ks + 1) * bn * 8]
+        regs = _ldmatrix_x4(flat[ks * bn * 16:(ks + 1) * bn * 16], lane * 16)
         b = rows[16 * ks:16 * ks + 16]
         for nt in range(bn // 8):
-            b0, b1 = blk[64 * nt + lane], blk[64 * nt + 32 + lane]
+            b0, b1 = regs[:, 2 * nt], regs[:, 2 * nt + 1]
             n = 8 * nt + g
             np.testing.assert_array_equal(b0 & 0xFFFF, b[2 * t, n])
             np.testing.assert_array_equal(b0 >> 16, b[2 * t + 1, n])
@@ -716,44 +743,48 @@ def test_bf16_mma_sync_b_words_hold_the_ptx_fragment():
             np.testing.assert_array_equal(b1 >> 16, b[2 * t + 9, n])
 
 
-def _koff_bf16(c, k, cc, kc_pad):
-    side, cs = cg.TILE + k - 1, cg.channel_stride(k, BF16)
-    kk = np.arange(kc_pad)
-    return np.where(kk < cc * k * k, kk // (k * k) * cs + kk % (k * k) // k * side + kk % k,
-                    cc * cs)
+def _im2col_taps(x, cc, k):
+    """NCHW x -> the GEMM's A [B*H*W, chunks * kc_pad] in the bf16 K order
+    (``weight_rows_bf16``'s rows): SAME zeros outside the image, zero columns
+    for channels >= C and for a kernel row's padding taps."""
+    bsz, c, h, w = x.shape
+    r = k // 2
+    chunks = -(-c // cc)
+    xp = np.zeros((bsz, chunks * cc, h + 2 * r, w + 2 * r + 3))
+    xp[:, :c, r:r + h, r:r + w] = x
+    kwp = k + -k % 4 if cc == 4 else k
+    cols = np.stack([np.stack([xp[:, :, kh:kh + h, kw:kw + w] for kw in range(kwp)], 1)
+                     for kh in range(k)], 1)  # [B, kh, kw, chunks*cc, H, W]
+    cols = cols.reshape(bsz, k, kwp, chunks, cc, h, w).transpose(0, 5, 6, 3, 1, 2, 4)
+    return cols.reshape(bsz * h * w, -1)
 
 
-@pytest.mark.parametrize("c,f,k", MAIN_PATH_CONVS)
-def test_bf16_a_fragment_loads_are_bank_conflict_free(c, f, k):
-    """Each 16-bit A load of a warp (row g (+8), k column 2t (+1, +8, +9))
-    touches at most one 4-byte word a bank, given the bf16 channel stride."""
-    bn, cc, kc_pad = cg.conv_plan(c, f, k, BF16)
-    side = cg.TILE + k - 1
-    koff = _koff_bf16(c, k, cc, kc_pad)
+@pytest.mark.parametrize("c,f,k", [(3, 16, 7), (9, 16, 7), (16, 32, 5), (3, 64, 3),
+                                   (32, 64, 3)])
+def test_bf16_weight_rows_reproduce_conv2d(c, f, k):
+    """A [pixels, K] in (kh, kw, c) order times ``weight_rows_bf16`` is the
+    SAME conv, in float64 (the zero rows meet the zero columns)."""
+    rs = np.random.RandomState(7 * c + k)
+    x = rs.randn(2, c, 9, 11)
+    w = torch.from_numpy(rs.randn(f, c, k, k).astype(np.float32)).to(BF16)
+    _, cc, _ = cg.conv_plan(c, f, k, BF16)
+    got = _im2col_taps(x, cc, k) @ cg.weight_rows_bf16(w, cc).double().numpy()
+    want = F.conv2d(torch.from_numpy(x), w.double(), padding=k // 2)
+    np.testing.assert_allclose(got.reshape(2, 9, 11, f).transpose(0, 3, 1, 2), want.numpy(),
+                               rtol=1e-10, atol=1e-10)
+
+
+def _ldmatrix_x4(mem, addr):
+    """ldmatrix.sync.aligned.m8n8.x4.b16: lane 8q + r gives the byte address of
+    row r of matrix q (``addr`` [..., 32]); lane (g, t) receives, for each q,
+    the word of bf16s 2t, 2t + 1 of row g of matrix q.  -> uint32 [..., 32, 4]."""
     lane = np.arange(32)
     g, t = lane >> 2, lane & 3
-    assert cg.channel_stride(k, BF16) % 64 == 48
-    for row in range(cg.TILE):
-        for ks in range(kc_pad // 16):
-            for col in (2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9):
-                for half in (0, 8):
-                    words = np.unique((row * side + g + half + koff[ks * 16 + col]) >> 1)
-                    assert len(np.unique(words % 32)) == len(words), (row, ks)
-
-
-def _a_regs_bf16(stage, moff, koff, ks):
-    """The 4 A registers (uint32) of each lane, packed as the kernel packs
-    them: low half the even k.  moff [..., 32]."""
-    lane = np.arange(32)
-    t = lane & 3
-    kb = ks * 16 + 2 * t
-    k0, k1, k8, k9 = koff[kb], koff[kb + 1], koff[kb + 8], koff[kb + 9]
-
-    def pack(lo, hi):
-        return stage[lo].astype(np.uint32) | (stage[hi].astype(np.uint32) << 16)
-
-    return np.stack([pack(moff + k0, moff + k1), pack(moff + 8 + k0, moff + 8 + k1),
-                     pack(moff + k8, moff + k9), pack(moff + 8 + k8, moff + 8 + k9)], -1)
+    regs = []
+    for q in range(4):
+        row = np.take(addr, 8 * q + g, axis=-1) // 2 + 2 * t
+        regs.append(mem[row].astype(np.uint32) | (mem[row + 1].astype(np.uint32) << 16))
+    return np.stack(regs, -1)
 
 
 def _a_matrix_bf16(regs):
@@ -768,88 +799,208 @@ def _a_matrix_bf16(regs):
     return m
 
 
-def simulate_launch_bf16(x, w, bias, mode):
-    """What one ``shdr_conv_gemm_bf16`` launch writes (bf16 tensors in and
-    out): the staged tile of 16-bit patterns, the A registers packed from two
-    16-bit loads each, B through the descriptor (BN >= 32) or the mma.sync
-    words (BN = 16), products and sums in float64, the epilogue's rounding."""
-    bsz, c, h, wd = x.shape
-    f, _, k, _ = w.shape
-    bn, cc, kc_pad = cg.conv_plan(c, f, k, BF16)
-    tile, r = cg.TILE, k // 2
-    side, cs = tile + k - 1, cg.channel_stride(k, BF16)
-    mt_n = tile // cg.WARPS
-    chunks, ksteps, kvalid = c // cc, kc_pad // 16, cc * k * k
-    zero = tile * side if kvalid < kc_pad else 0
-    koff = _koff_bf16(c, k, cc, kc_pad)
-    xb = _bits(x)
-    wpk = _bits(cg.pack_weights(w)).reshape(f // bn, chunks, -1)
+def _b_matrix_sync(regs):
+    """ldmatrix.x4 of a BN = 16 k-step block [32, 4] -> B [16 k, 16 n] by the
+    PTX map of mma.sync m16n8k16: n8 tile nt takes b0 = reg 2 nt (k 2t, 2t+1;
+    n g), b1 = reg 2 nt + 1 (k 2t+8, 2t+9; n g)."""
     lane = np.arange(32)
     g, t = lane >> 2, lane & 3
+    m = np.zeros((16, 16))
+    for nt in range(2):
+        for half in range(2):
+            word = regs[:, 2 * nt + half]
+            m[2 * t + 8 * half, 8 * nt + g] = _from_bits((word & 0xFFFF).astype(np.uint16))
+            m[2 * t + 8 * half + 1, 8 * nt + g] = _from_bits((word >> 16).astype(np.uint16))
+    return m
+
+
+def _desc(start, lead, stride):
+    """csrc/bf16_mma.cuh smem_desc: 14-bit fields in 16-byte units."""
+    return ((start & 0x3FFFF) >> 4) | ((lead >> 4) << 16) | ((stride >> 4) << 32)
+
+
+def _desc_matrix(mem, desc, rows):
+    """The rows x 16 bf16 operand a no-swizzle K-major descriptor names (PTX
+    ISA, matrix descriptor): 8-row core matrices of 16-byte rows; core
+    (m // 8, k // 8) at start + (m // 8) * stride + (k // 8) * lead, element
+    (m % 8, k % 8) at 16 (m % 8) + 2 (k % 8) within it.  -> float64."""
+    start, lead, stride = (desc & 0x3FFF) << 4, ((desc >> 16) & 0x3FFF) << 4, \
+        ((desc >> 32) & 0x3FFF) << 4
+    m, k = np.arange(rows)[:, None], np.arange(16)[None, :]
+    byte = start + (m // 8) * stride + (k // 8) * lead + 16 * (m % 8) + 2 * (k % 8)
+    return _from_bits(mem[byte // 2]).astype(np.float64)
+
+
+def _sync_a_addresses(p, k, warp, c):
+    """The mma.sync path's ldmatrix rows of A for kernel column step c:
+    [warps, 32] byte offsets into the staged tile of tile row 4 warp (staged
+    row y adds y * IW * 16).  Lane 8q + r: pixel column r + 8 (q & 1),
+    k half h = q >> 1: plane h at tap kw = c (two planes), or the pixel-pair
+    row at kw = 4c + 2h (one plane; kw = 4c where 4c + 2h is past the row)."""
+    lane = np.arange(32)
+    q = lane >> 3
+    h = q >> 1
+    col = (lane & 7) + 8 * (q & 1)
+    if p["planes"] == 2:
+        plane, kw = h, c + 0 * h
+    else:
+        plane, kw = 0 * h, np.where(4 * c + 2 * h < k, 4 * c + 2 * h, 4 * c)
+    warp = np.asarray(warp)[..., None]
+    return plane * p["plane_bytes"] + ((4 * warp) * p["iw"] + col + kw) * 16
+
+
+def _stage_tile(xb, blocked, b, j, p, c, ty0, tx0, k):
+    """The staged planes of chunk j, as conv1 (NCHW input: 8 channels a 16-byte
+    row, or with one plane 4 channels of pixels p and p + 1; zeros past C) or
+    conv2 (blocked input, one 16-byte copy a row) writes them: uint16
+    [planes * IH * IW * 8], zeros outside the image."""
+    ih, iw, planes = p["ih"], p["iw"], p["planes"]
+    i = np.arange(planes * ih * iw)
+    q, rr = i // (ih * iw), i % (ih * iw)
+    gy, gx = ty0 - k // 2 + rr // iw, tx0 - k // 2 + rr % iw
+    ok = (gy >= 0) & (gy < xb.shape[-3 if blocked else -2]) & (gx >= 0) & \
+        (gx < xb.shape[-2 if blocked else -1])
+    rows = np.zeros((i.size, 8), np.uint16)
+    if blocked:
+        rows[ok] = xb[b, j * planes + q[ok], gy[ok], gx[ok]]
+    else:
+        rows_in = (gy >= 0) & (gy < xb.shape[-2])
+        for e in range(8):
+            ch, dx = (j * 16 + q * 8 + e, 0) if planes == 2 else (0 * q + e % 4, e // 4)
+            m = rows_in & (ch < c) & (gx + dx >= 0) & (gx + dx < xb.shape[-1])
+            rows[m, e] = xb[b, ch[m], gy[m], gx[m] + dx]
+    return rows.reshape(-1)
+
+
+def simulate_launch_bf16(x, w, bias, mode):
+    """What one ``shdr_conv_gemm_bf16`` launch writes, lane by lane: the staged
+    channel-inner planes (SAME zeros), then per k-step either (BN >= 32) the A
+    and B descriptors resolved into core matrices, one m64 tile of 8 x 8
+    pixels each, or (BN = 16) the ldmatrix.x4 rows of A and B mapped into
+    mma.sync fragments, each A fragment of staged row y used for the warp's
+    tile rows y - kh; sums in float64.  The epilogue maps each thread's
+    accumulators to pixels as the kernel does, rounds to bf16, stores conv1
+    channel-blocked [B, F/8, H, W, 8] and conv2 NCHW: the skip and the pool
+    (taken in registers, lane g ^ 1 by shuffle; the max pool's members
+    outside the image set to 0, which no ReLU value is below) through their
+    shared-memory tiles and 16-byte row copies.  Store modes take NCHW x; pool modes the blocked
+    mid."""
     pool = mode in (cg.LEAKY_AVG_POOL, cg.RELU_MAX_POOL)
+    xb = _bits(x)
+    if pool:
+        bsz, c8, h, wd, _ = x.shape
+        c = 8 * c8
+    else:
+        bsz, c, h, wd = x.shape
+    f, _, k, _ = w.shape
+    p = cg.plan_bf16(c, f, k)
+    bn, planes, ksteps = p["bn"], p["planes"], p["ksteps"]
+    (th, tw), iw = p["tile"], p["iw"]
+    csr = ksteps // k
+    sync = cg.sync_path_bf16(bn)
+    mt_n, nt_n = (4 if sync else 2), bn // 8
+    wpk = _bits(cg.pack_weights(w)).reshape(f // bn, p["chunks"], -1)
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    warp = np.arange(8)
     leaky = mode in (cg.LEAKY_STORE, cg.LEAKY_AVG_POOL)
     ph, pw = (h // 2, wd // 2) if mode == cg.LEAKY_AVG_POOL else ((h + 1) // 2, (wd + 1) // 2)
-    out = np.full((bsz, f, h, wd), np.nan, np.float32)
+    out = np.full((bsz, f, h, wd) if pool else (bsz, f // 8, h, wd, 8), np.nan, np.float32)
     pooled = np.full((bsz, f, ph, pw), np.nan, np.float32) if pool else None
-    i = np.arange(cc * side * side)
-    ci, ri = i // (side * side), i % (side * side)
-    bias = bias.numpy()
+    # a thread's accumulator d[mt][4 nt + i] -> (tile row, column, channel)
+    W_, L_, MT_, NT_, I_ = np.ix_(warp, lane, np.arange(mt_n), np.arange(nt_n), np.arange(4))
+    G_, T_ = L_ >> 2, L_ & 3
+    if sync:
+        row, col = 4 * W_ + MT_ + 0 * I_, G_ + 8 * (I_ >> 1) + 0 * MT_
+    else:
+        row, col = 8 * (W_ // 4) + 2 * (W_ % 4) + (I_ >> 1) + 0 * MT_, 8 * MT_ + G_ + 0 * I_
+    chan = 8 * NT_ + 2 * T_ + (I_ & 1)
+    row, col, chan = np.broadcast_arrays(row, col, chan)
     for b in range(bsz):
         for nblk in range(f // bn):
-            for ty0 in range(0, h, tile):
-                for tx0 in range(0, wd, tile):
-                    acc = np.zeros((cg.WARPS, mt_n, 16, bn))
-                    for j in range(chunks):
-                        stage = np.zeros(cc * cs + zero, np.uint16)
-                        gy, gx = ty0 - r + ri // side, tx0 - r + ri % side
-                        ok = (gy >= 0) & (gy < h) & (gx >= 0) & (gx < wd)
-                        stage[ci[ok] * cs + ri[ok]] = xb[b, j * cc + ci[ok], gy[ok], gx[ok]]
-                        blocks = wpk[nblk, j].reshape(ksteps, bn * 16)
-                        for warp in range(cg.WARPS):
-                            moff = (warp * mt_n + np.arange(mt_n))[:, None] * side + g
-                            for ks in range(ksteps):
-                                a = _a_matrix_bf16(_a_regs_bf16(stage, moff, koff, ks))
-                                if bn == 16:  # mma.sync words
-                                    words = blocks[ks].view(np.uint32)
-                                    bm = np.zeros((16, bn))
-                                    for nt in range(bn // 8):
-                                        b0, b1 = words[64 * nt + lane], words[64 * nt + 32 + lane]
-                                        n = 8 * nt + g
-                                        for kr, half in ((2 * t, b0 & 0xFFFF), (2 * t + 1, b0 >> 16),
-                                                         (2 * t + 8, b1 & 0xFFFF),
-                                                         (2 * t + 9, b1 >> 16)):
-                                            bm[kr, n] = _from_bits(half.astype(np.uint16))
-                                else:
-                                    bm = _from_bits(_b_bf16(blocks[ks], bn))
-                                acc[warp] += a @ bm
-                    for warp in range(cg.WARPS):
-                        v = acc[warp].astype(np.float32) + bias[nblk * bn:(nblk + 1) * bn]
-                        v = np.where(v > 0, v, v * np.float32(0.1)) if leaky else np.maximum(v, 0)
-                        for mt in range(mt_n):
-                            y = ty0 + warp * mt_n + mt
-                            xs = tx0 + np.arange(16)
-                            m = xs < wd
-                            if y < h:
-                                # (advanced indices apart: [columns, channels])
-                                out[b, nblk * bn:(nblk + 1) * bn, y, xs[m]] = _round_bf16(v[mt][m])
-                        if not pool:
-                            continue
-                        y = ty0 + warp * mt_n  # even: the window's top row
-                        if y // 2 >= ph:
-                            continue
-                        if mode == cg.RELU_MAX_POOL:
-                            top = v[0]
-                            bot = v[1] if y + 1 < h else np.full_like(v[1], -np.inf)
-                            cols = np.maximum(top, bot)
-                            xs = tx0 + np.arange(16)
-                            cols = np.where((xs < wd)[:, None], cols, -np.inf)
-                            pv = np.maximum(cols[0::2], cols[1::2])
-                        else:
-                            s = v[0] + v[1]
-                            pv = (s[0::2] + s[1::2]) * np.float32(0.25)
-                        px = tx0 // 2 + np.arange(8)
-                        m = px < pw
-                        pooled[b, nblk * bn:(nblk + 1) * bn, y // 2, px[m]] = _round_bf16(pv[m])
+            for ty0 in range(0, h, th):
+                for tx0 in range(0, wd, tw):
+                    d = np.zeros((8, mt_n, 16, bn)) if sync else np.zeros((2, mt_n, 64, bn))
+                    for j in range(p["chunks"]):
+                        tile = _stage_tile(xb, pool, b, j, p, c, ty0, tx0, k)
+                        wmem = wpk[nblk, j]
+                        for c_ in range(csr):
+                            if sync:
+                                bm = [_b_matrix_sync(_ldmatrix_x4(wmem, (kh * csr + c_) * bn * 32
+                                                                  + lane * 16)) for kh in range(k)]
+                                a_lane = _sync_a_addresses(p, k, warp, c_)
+                                for y in range(mt_n + k - 1):
+                                    a = _a_matrix_bf16(_ldmatrix_x4(tile, a_lane + y * iw * 16))
+                                    for mt in range(mt_n):
+                                        if 0 <= y - mt < k:
+                                            d[:, mt] += a @ bm[y - mt]
+                                continue
+                            kw0 = c_ if planes == 2 else 4 * c_
+                            kw1 = c_ if planes == 2 else (4 * c_ + 2 if 4 * c_ + 2 < k else 4 * c_)
+                            lead = p["plane_bytes"] if planes == 2 else (kw1 - kw0) * 16
+                            for kh in range(k):
+                                bmat = _desc_matrix(wmem, _desc((kh * csr + c_) * bn * 32, 128, 256),
+                                                    bn)
+                                for v in range(2):
+                                    for mt in range(mt_n):
+                                        start = ((8 * v + kh) * iw + 8 * mt + kw0) * 16
+                                        a = _desc_matrix(tile, _desc(start, lead, p["stride_bytes"]),
+                                                         64)
+                                        d[v, mt] += a @ bmat.T
+                    # the D fragments of each thread: mma.sync rows g (+8) of
+                    # the warp's m16 tile mt; wgmma rows 16 (warp % 4) + g (+8)
+                    # of its warpgroup's m64 tile mt
+                    if sync:
+                        acc = d[W_, MT_, G_ + 8 * (I_ >> 1), chan]
+                    else:
+                        acc = d[W_ // 4, MT_, 16 * (W_ % 4) + G_ + 8 * (I_ >> 1), chan]
+                    n = nblk * bn + chan
+                    v = acc.astype(np.float32) + bias.numpy()[n]
+                    v = np.where(v > 0, v, v * np.float32(0.1)) if leaky else np.maximum(v, 0)
+                    y, xx = ty0 + row, tx0 + col
+                    inside = (y < h) & (xx < wd)
+                    if mode == cg.RELU_MAX_POOL:  # members outside the image: 0 (<= any ReLU)
+                        v = np.where(inside, v, np.float32(0))
+                    if not pool:
+                        out[b, n[inside] // 8, y[inside], xx[inside], n[inside] % 8] = \
+                            _round_bf16(v[inside])
+                        continue
+                    # window (y, y + 1) x (xx, xx + 1): mma.sync tile rows mt,
+                    # mt + 1 of a thread; wgmma accumulators i, i + 2
+                    if sync:
+                        sel = (slice(None), slice(None), slice(0, None, 2))
+                        below = (slice(None), slice(None), slice(1, None, 2))
+                    else:
+                        sel = (Ellipsis, slice(0, 2))
+                        below = (Ellipsis, slice(2, 4))
+                    top, bot, prw, pcl, pch = v[sel], v[below], row[sel], col[sel], chan[sel]
+                    if mode == cg.RELU_MAX_POOL:
+                        s = np.maximum(top, bot)
+                        s = np.maximum(s, s[:, lane ^ 4])
+                    else:
+                        s = top + bot
+                        s = (s + s[:, lane ^ 4]) * np.float32(0.25)
+                    # the skip tile [bn][rows * 16 + pad] and the pool tile
+                    # [bn][rows / 2 * 8 + pad] in shared memory (even lanes g write
+                    # the pool), then 8 columns (16 bytes) a copy
+                    even = np.broadcast_to((G_ & 1) == 0, s.shape)
+                    es = np.full(bn * p["skip_stride"], np.nan, np.float32)
+                    es[chan * p["skip_stride"] + row * tw + col] = _round_bf16(v)
+                    ps = np.full(bn * p["pool_stride"], np.nan, np.float32)
+                    ps[pch[even] * p["pool_stride"] + prw[even] // 2 * (tw // 2)
+                       + pcl[even] // 2] = _round_bf16(s[even])
+                    for tile, stride, rows, cols, dst, hh, ww, y0, x0 in (
+                            (es, p["skip_stride"], th, tw, out, h, wd, ty0, tx0),
+                            (ps, p["pool_stride"], th // 2, tw // 2, pooled, ph, pw, ty0 // 2,
+                             tx0 // 2)):
+                        k_ = np.arange(bn * rows * (cols // 8))
+                        piece = k_ % (cols // 8)
+                        srow, sn = k_ // (cols // 8) % rows, k_ // (cols // 8 * rows)
+                        for e in range(8):
+                            ys, xs = y0 + srow, x0 + 8 * piece + e
+                            mm = (ys < hh) & (xs < ww)
+                            dst[b, nblk * bn + sn[mm], ys[mm], xs[mm]] = tile[
+                                sn[mm] * stride + srow[mm] * cols + 8 * piece[mm] + e]
     return out, pooled
 
 
@@ -859,17 +1010,18 @@ BF16_STAGES = [
     ("unet_stage2", (1, 9, 18, 20), 16, 7),
     ("unet_stage2", (1, 16, 16, 17), 16, 7),
     ("unet_stage2", (2, 16, 17, 16), 32, 5),
+    ("unet_stage2", (1, 3, 35, 18), 16, 7),
 ]
 
 
 @pytest.mark.parametrize("kernel,shape,f,k", BF16_STAGES,
                          ids=[f"{s[0]}_{s[1][1]}to{s[2]}_k{s[3]}" for s in BF16_STAGES])
 def test_simulated_bf16_launches_match_the_bf16_plain_stage(kernel, shape, f, k):
-    """Two simulated launches (conv1 stores, conv2 stores and pools) against
-    the bf16 plain stage.  Both sum the same exact products, in float64 here
-    and f32 there, so a stored value differs at most where the two sums round
-    to neighbouring bf16 values: within one ulp of the largest value
-    (measured: most elements equal)."""
+    """Two simulated launches (conv1 stores the blocked mid, conv2 reads it
+    back, stores and pools) against the bf16 plain stage.  Both sum the same
+    exact products, in float64 here and f32 there, so a stored value differs
+    at most where the two sums round to neighbouring bf16 values: within one
+    ulp of the largest value (measured: most elements equal)."""
     rs = np.random.RandomState(f * k + shape[1])
     c = shape[1]
     x = torch.from_numpy((rs.rand(*shape) * 2 - 0.5).astype(np.float32)).to(BF16)
@@ -885,6 +1037,7 @@ def test_simulated_bf16_launches_match_the_bf16_plain_stage(kernel, shape, f, k)
         plain, modes = encoder_stage2_plain, (cg.RELU_STORE, cg.RELU_MAX_POOL)
     mid, none = simulate_launch_bf16(x, w1, b1, modes[0])
     assert none is None and np.isfinite(mid).all()
+    assert mid.shape == tuple(cg.mid_like(x, f).shape)
     act, pooled = simulate_launch_bf16(torch.from_numpy(mid).to(BF16), w2, b2, modes[1])
     want_pool, want_act = (t.float().numpy() for t in plain(x, w1, b1, w2, b2))
     for got, want in ((act, want_act), (pooled, want_pool)):
@@ -892,6 +1045,126 @@ def test_simulated_bf16_launches_match_the_bf16_plain_stage(kernel, shape, f, k)
         assert np.isfinite(got).all(), "every output element is written"
         assert np.abs(got - want).max() <= ULP * np.abs(want).max()
         assert np.mean(got == want) > 0.9
+
+
+def test_bf16_mid_is_channel_blocked():
+    """conv1's bf16 activation is [B, F/8, H, W, 8] (channel 8 q + e of pixel
+    (y, x) at [b, q, y, x, e]); f32 keeps NCHW."""
+    x = torch.zeros(2, 3, 5, 7, dtype=BF16)
+    assert tuple(cg.mid_like(x, 64).shape) == (2, 8, 5, 7, 8)
+    assert cg.mid_like(x, 64).dtype == BF16
+    assert tuple(cg.mid_like(x.float(), 64).shape) == (2, 64, 5, 7)
+    rs = np.random.RandomState(5)
+    xc = torch.from_numpy(rs.rand(1, 3, 6, 5).astype(np.float32)).to(BF16)
+    w = torch.from_numpy(rs.randn(16, 3, 7, 7).astype(np.float32) * 0.1).to(BF16)
+    b = torch.from_numpy((rs.randn(16) * 0.1).astype(np.float32))
+    mid, _ = simulate_launch_bf16(xc, w, b, cg.LEAKY_STORE)
+    want = F.leaky_relu(F.conv2d(xc.float(), w.float(), b, padding=3), 0.1).to(BF16).float()
+    got = torch.from_numpy(mid).permute(0, 1, 4, 2, 3).reshape(1, 16, 6, 5)
+    assert (got - want).abs().max() <= ULP * want.abs().max()
+
+
+@pytest.mark.parametrize("c", [3, 16], ids=["one_plane", "two_planes"])
+def test_bf16_ldmatrix_fragments_are_the_mma_a_layout(c):
+    """The stems' ldmatrix.x4 rows, mapped into mma.sync m16n8k16 A
+    registers by the PTX layout, are the im2col rows of tile row 4 warp +
+    y - kh: A[m, k] is pixel column m of that staged row at the k-step's tap
+    and channel (k 0-7 plane 0; k 8-15 plane 1, or the pair's second tap)."""
+    k = 7
+    p = cg.plan_bf16(c, 16, k)
+    ih, iw, planes = p["ih"], p["iw"], p["planes"]
+    rs = np.random.RandomState(c)
+    tile = _bits(torch.from_numpy(rs.randn(planes * ih * iw * 8).astype(np.float32)).to(BF16))
+    vals = _from_bits(tile).reshape(planes, ih, iw, 8)
+    for warp in (0, 7):
+        for c_ in range(p["ksteps"] // k):
+            a_lane = _sync_a_addresses(p, k, warp, c_)
+            for y in (0, 4 + k - 2):
+                a = _a_matrix_bf16(_ldmatrix_x4(tile, a_lane + y * iw * 16))
+                srow = 4 * warp + y
+                m = np.arange(16)
+                if planes == 2:
+                    want = np.concatenate([vals[0, srow, m + c_], vals[1, srow, m + c_]], 1)
+                else:
+                    kw1 = 4 * c_ + 2 if 4 * c_ + 2 < k else 4 * c_
+                    want = np.concatenate([vals[0, srow, m + 4 * c_], vals[0, srow, m + kw1]], 1)
+                np.testing.assert_array_equal(a, want)
+
+
+@pytest.mark.parametrize("c,f,k", MAIN_PATH_CONVS)
+def test_bf16_a_fragment_loads_are_bank_conflict_free(c, f, k):
+    """Shared-memory accesses of every bf16 layer, in the phases the hardware
+    serves 16-byte accesses in (8 lanes, 128 bytes): the staging stores (a
+    warp's 32 consecutive rows), the stems' ldmatrix rows of A and B, each
+    128-byte core matrix a wgmma descriptor names (A and B), and conv2's
+    skip-tile copies touch each bank once; the skip tile's 2-byte stores
+    touch each bank in one word."""
+    p = cg.plan_bf16(c, f, k)
+
+    def distinct(byte_rows):  # 8 16-byte rows: 32 distinct banks
+        banks = ((np.asarray(byte_rows)[:, None] + 4 * np.arange(4)) // 4 % 32).ravel()
+        return len(np.unique(banks)) == 32
+
+    rows = np.arange(p["planes"] * p["ih"] * p["iw"] + 32) * 16
+    for start in range(0, rows.size - 32, 32):
+        assert all(distinct(rows[start + 8 * q:start + 8 * q + 8]) for q in range(4))
+    bn, planes, ksteps = p["bn"], p["planes"], p["ksteps"]
+    # conv2's skip tile: each 2-byte store of a warp (one accumulator of
+    # every lane) on distinct words a bank, and the 16-byte copies out
+    (th, tw), es = p["tile"], p["skip_stride"]
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    sync = cg.sync_path_bf16(bn)
+    for warp in range(8):
+        for mt in range(4 if sync else 2):
+            for i in range(4):
+                row = 4 * warp + mt if sync else 8 * (warp // 4) + 2 * (warp % 4) + (i >> 1)
+                col = g + 8 * (i >> 1) if sync else 8 * mt + g
+                for nt in range(bn // 8):
+                    words = np.unique(((8 * nt + 2 * t + (i & 1)) * es + row * tw + col) // 2)
+                    assert len(np.unique(words % 32)) == len(words), (warp, mt, i, nt)
+                    if i < 2 or sync:  # a window's top row: even lanes g, into the pool tile
+                        pw_ = ((8 * nt + 2 * t + (i & 1)) * p["pool_stride"] + row // 2 * (tw // 2)
+                               + col // 2)[(g & 1) == 0]
+                        words = np.unique(pw_ // 2)
+                        assert len(np.unique(words % 32)) == len(words), (warp, mt, i, nt)
+    k_ = np.arange(bn * th * (tw // 8))
+    copies = (k_ // (tw // 8 * th) * es + k_ // (tw // 8) % th * tw + 8 * (k_ % (tw // 8))) * 2
+    for start in range(0, copies.size, 8):
+        assert distinct(copies[start:start + 8])
+    k_ = np.arange(bn * th // 2)
+    copies = (bn * es + k_ // (th // 2) * p["pool_stride"] + k_ % (th // 2) * (tw // 2)) * 2
+    for start in range(0, copies.size, 8):
+        assert distinct(copies[start:start + 8])
+    csr = ksteps // k
+    lane = np.arange(32)
+    if cg.sync_path_bf16(bn):
+        for warp in range(8):
+            for c_ in range(csr):
+                a_lane = _sync_a_addresses(p, k, warp, c_)
+                for y in range(4 + k - 1):
+                    addr = a_lane + y * p["iw"] * 16
+                    assert all(distinct(addr[8 * q:8 * q + 8]) for q in range(4)), (warp, c_, y)
+                for kh in range(k):
+                    addr = (kh * csr + c_) * bn * 32 + lane * 16
+                    assert all(distinct(addr[8 * q:8 * q + 8]) for q in range(4))
+        return
+    for c_ in range(csr):
+        kw0 = c_ if planes == 2 else 4 * c_
+        kw1 = c_ if planes == 2 else (4 * c_ + 2 if 4 * c_ + 2 < k else 4 * c_)
+        lead = p["plane_bytes"] if planes == 2 else (kw1 - kw0) * 16
+        for kh in range(k):
+            for v in range(2):
+                for mt in range(2):
+                    start = ((8 * v + kh) * p["iw"] + 8 * mt + kw0) * 16
+                    for core_m in range(8):
+                        for core_k in range(2):
+                            base = start + core_m * p["stride_bytes"] + core_k * lead
+                            assert distinct(base + 16 * np.arange(8))
+            for ng in range(bn // 8):
+                for kc in range(2):
+                    assert distinct((kh * csr + c_) * bn * 32 + 256 * ng + 128 * kc
+                                    + 16 * np.arange(8))
 
 
 def simulate_stem_bf16(x, k7, bias):
@@ -1045,3 +1318,22 @@ def test_k1_rejects_a_bf16_tensor():
         apply_rf_cuda.check_args("apply_rf", x, rf.to(BF16))
     with pytest.raises(ValueError, match="contiguous float32"):
         apply_rf_cuda.check_args("apply_rf_bwd", x.to(BF16), rf)
+
+
+def test_conv_variants_edit_the_kernel_source_once():
+    """tools/conv_variants' design variants are text edits of the tree's
+    csrc/conv2_pool.cu: each edit matches exactly once, so a variant stays
+    the tree's kernel but for the one choice it names."""
+    from singlehdr_tpu_torch.ops.cuda import _build
+    from singlehdr_tpu_torch.tools import conv_variants as cv
+
+    text = (_build.CSRC / "conv2_pool.cu").read_text()
+    for name in cv.SOURCE_EDITS:
+        assert cv.edited_source(name, text) != text
+    assert set(cv.VARIANTS) == set(cv.SOURCE_EDITS) | set(cv.PLAN_VARIANTS)
+    undo = cv.sixteen_channel_plan()
+    try:
+        assert cg.conv_plan(3, 16, 7, BF16) == (16, 16, 16 * 49)
+    finally:
+        undo()
+    assert cg.conv_plan(3, 16, 7, BF16) == (16, 4, 16 * 14)

@@ -150,3 +150,14 @@ def test_serve_trace_busy_time_is_the_union_of_device_intervals():
     assert got["by_kind_ms"] == pytest.approx({"hand K3": 0.015, "cuDNN convs": 0.01,
                                                "H2D / D2H / memset": 0.005})
 
+
+
+@pytest.mark.parametrize("name", ["void (anonymous namespace)::conv_gemm_kernel<3, 64, (Mode)3>",
+                                  "void (anonymous namespace)::conv_gemm_bf16_kernel<3, 64, "
+                                  "(Mode)3, 2>"])
+def test_serve_trace_counts_both_conv_kernels_as_hand_k2_k4(name):
+    """The f32 and the bf16 conv kernel of K2/K4 are the hand kernels, not
+    cuDNN's convs (whose names also hold "conv")."""
+    from singlehdr_tpu_torch.tools import serve_trace as st
+
+    assert st.kind(name, "kernel") == "hand K2 + K4"
