@@ -255,15 +255,16 @@ def cold_l2_ms(fn, iters: int = 10) -> float:
 
 
 def check_tensor_core_sass() -> None:
-    """Phase 2: K2/K4's conv kernels and K3's kernel run on the tensor cores,
-    and the bf16 convs do not spill.  In the SASS of the built library
-    (cuobjdump): every f32 conv instantiation (``conv_gemm_kernel``) holds
-    TF32 HMMA (mma.sync) or HGMMA (wgmma) instructions; every bf16 one
+    """Phase 2: K2/K4's conv kernels and K3's kernels run on the tensor
+    cores, and the bf16 kernels do not spill.  In the SASS of the built
+    library (cuobjdump): every f32 conv instantiation (``conv_gemm_kernel``)
+    holds TF32 HMMA (mma.sync) or HGMMA (wgmma) instructions; every bf16 one
     (``conv_gemm_bf16_kernel``) BF16 HGMMA where a block is 32 channels or
-    more and BF16 HMMA (or HGMMA) in the 16-channel stems; K3's kernel HGMMA
-    of its type in both dtypes (template argument ``Lb0``/``Lb1``).  In
-    ``cuobjdump -res-usage``: every bf16 conv instantiation has no stack
-    frame and no local memory, so no spill stores."""
+    more and BF16 HMMA (or HGMMA) in the 16-channel stems; K3's f32 kernel
+    (``lin_stem_kernel``) TF32 HGMMA and its bf16 kernel
+    (``lin_stem_bf16_kernel``) BF16 HGMMA.  In ``cuobjdump -res-usage``:
+    every bf16 conv instantiation and the bf16 K3 kernel have no stack frame
+    and no local memory, so no spill stores."""
     import re
     from pathlib import Path
 
@@ -283,11 +284,12 @@ def check_tensor_core_sass() -> None:
             return sum(".BF16" in ln for ln in lines)
         return sum(".BF16" not in ln for ln in lines)
 
-    kinds = (("conv_gemm_kernel", "", "TF32"), ("conv_gemm_bf16_kernel", "", "BF16"),
-             ("lin_stem_kernel", "ILb0E", "TF32"), ("lin_stem_kernel", "ILb1E", "BF16"))
-    for kernel, flag, precision in kinds:
+    kinds = (("conv_gemm_kernel", "TF32"), ("conv_gemm_bf16_kernel", "BF16"),
+             ("lin_stem_kernel", "TF32"), ("lin_stem_bf16_kernel", "BF16"))
+    for kernel, precision in kinds:
+        # the mangled name: the kernel's, then its template arguments (I) or its end (E)
         insts = [(name, body) for name, body in functions
-                 if f"{kernel}I" in name and flag in name]
+                 if f"{kernel}I" in name or f"{kernel}E" in name]
         counts = [(mma(body, "HMMA", precision), mma(body, "HGMMA", precision), name)
                   for name, body in insts]
         print(f"  {kernel} {precision}: {len(insts)} instantiation(s); HMMA.{precision} "
@@ -298,7 +300,7 @@ def check_tensor_core_sass() -> None:
                                  "tensor-core instructions in its SASS")
         for hmma, hgmma, name in counts:
             stem = "ELi16ELNS" in name  # BN = 16
-            if kernel == "lin_stem_kernel" and not hgmma:
+            if kernel.startswith("lin_stem") and not hgmma:
                 raise AssertionError(f"K3 ({precision}) has no HGMMA in its SASS")
             if kernel == "conv_gemm_bf16_kernel" and not (hmma + hgmma if stem else hgmma):
                 raise AssertionError(f"{name}: no {'HMMA' if stem else 'HGMMA'}.BF16")
@@ -306,14 +308,15 @@ def check_tensor_core_sass() -> None:
     usage = subprocess.run([str(tool), "-res-usage", lib], capture_output=True, text=True,
                            check=True).stdout
     rows = re.findall(r"Function (\S+):\s+REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)", usage)
-    bf16 = [(name, int(reg), int(stack), int(local)) for name, reg, stack, local in rows
-            if "conv_gemm_bf16_kernel" in name]
-    spilled = [name for name, _, stack, local in bf16 if stack or local]
-    print(f"  conv_gemm_bf16_kernel: {len(bf16)} instantiation(s), registers "
-          f"{min(r for _, r, _, _ in bf16)}-{max(r for _, r, _, _ in bf16)}, "
-          f"{len(spilled)} with a stack frame or local memory (spill stores)", flush=True)
-    if not bf16 or spilled:
-        raise AssertionError(f"bf16 conv instantiations that spill: {spilled or 'none found'}")
+    for kernel in ("conv_gemm_bf16_kernel", "lin_stem_bf16_kernel"):
+        bf16 = [(name, int(reg), int(stack), int(local)) for name, reg, stack, local in rows
+                if kernel in name]
+        spilled = [name for name, _, stack, local in bf16 if stack or local]
+        regs = [r for _, r, _, _ in bf16] or [0]
+        print(f"  {kernel}: {len(bf16)} instantiation(s), registers {min(regs)}-{max(regs)}, "
+              f"{len(spilled)} with a stack frame or local memory (spill stores)", flush=True)
+        if not bf16 or spilled:
+            raise AssertionError(f"{kernel} instantiations that spill: {spilled or 'none found'}")
 
 
 def kernel_cases(pipe, dev, dtype=torch.float32):
@@ -570,7 +573,7 @@ def check_kernels(pipe, dev) -> dict:
         "lin_feature_stem": (lin_stem_cuda.lin_feature_stem, lin_stem_cuda.lin_feature_stem_plain),
         "encoder_stage2": (enc_pool_cuda.encoder_stage2, enc_pool_cuda.encoder_stage2_plain),
     }
-    report = {}
+    report, main_path = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         suffix = "_bf16" if dtype == torch.bfloat16 else ""
         # made outside inference mode, so that the kernels' weight packing is
@@ -655,6 +658,10 @@ def check_kernels(pipe, dev) -> dict:
                 r["bound_ms"] += bound_ms
                 r["ops_bound_ms"] += bound_ms if bound_by == "operations" else 0.0
                 r["simt_bound_ms"] += simt_ms
+                if "odd" not in label:
+                    m = main_path.setdefault(name + suffix, [0.0, 0.0])
+                    m[0] += ms
+                    m[1] += bound_ms
                 print(f"  {name + suffix:22s} {label:36s} max_abs_err {abs_err:.3e} rel {rel_err:.3e} "
                       f"equal {equal:.2%} kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  bound "
                       f"{bound_ms:.4f} ms ({bound_by}; {other})  share {bound_ms / ms:.1%}  "
@@ -668,6 +675,10 @@ def check_kernels(pipe, dev) -> dict:
                               f"TFLOP/s  bound {conv_bound:.4f} ms  share {conv_bound / conv_ms:.1%}",
                               flush=True)
         torch.cuda.synchronize()
+    # each (kernel, dtype) over its main-path cases (the odd shapes left out)
+    for name, (ms, bound_ms) in main_path.items():
+        print(f"  {name:22s} main path: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms, "
+              f"{bound_ms / ms:.1%} of its bound", flush=True)
     return report
 
 

@@ -20,11 +20,22 @@ once into TF32 hi/lo planes; in a plane, channel ``cl``, receptive-field row
 PARITY_WIDTH + rx // 2``.  ``pack_stem_weights`` lays out B to match.
 
 bf16 (x, the folded kernel and the output bf16, the bias f32): chunks of 16
-channels (6), each k-step one tap x 16 channels, so an A register is the
-pair of channels (2q, 2q + 1) of one feature; the features are built in f32
-from the bf16 image and rounded once, into 8 planes of channel pairs (one
-bf16x2 word an entry, the f32 planes' word layout).  B is one bf16 plane in
-``conv_gemm``'s bf16 core matrices.  The plain version rounds where the
+channels (6), each k-step one tap x 16 channels; the features are built in
+f32 from the bf16 image and rounded once.  The block is warp-specialised
+(``plan_bf16``): two producer warpgroups build chunk j + 1 into one of two
+feature buffers while two consumer warpgroups run chunk j's 49 k-steps on
+``wgmma`` with both operands read from shared memory by descriptor, and one
+thread copies B (``conv_gemm``'s bf16 core matrices, one kernel row a ring
+slot) with ``cp.async.bulk``; mbarriers hand buffers and slots over.  One
+block an SM walks the tiles, so the producers start the next tile while the
+consumers finish the last.  A buffer is channel-inner: 16-byte row ``e`` of
+8-channel group ``h`` (byte ``h * group_bytes + 16 * e``) holds channels
+``8h .. 8h + 7`` of receptive row ``e // ROW`` at column-parity entry
+``e % ROW`` (column ``2 e'`` for ``e' < PARITY_WIDTH``, else
+``2 (e' - PARITY_WIDTH) + 1``), so the 8 output columns of a tap are one
+8 x 16-byte core matrix.  With pixels as N the 64 output channels are the
+GEMM's M (the packed weights are the A operand) and a consumer warpgroup's
+16 output rows x 8 columns its N = 128.  The plain version rounds where the
 kernel rounds: each feature, then the output.
 
 Layout: x [B, 3, H, W]; kernel OIHW [64, 93, 7, 7]; output NCHW.
@@ -46,6 +57,9 @@ from singlehdr_tpu_torch.ops.cuda._check import (
     stream,
 )
 from singlehdr_tpu_torch.ops.cuda.conv_gemm import (
+    BLOCK_RESERVED,
+    SM_SMEM,
+    SMEM_LIMIT,
     cached_on,
     core_matrices,
     core_matrices_bf16,
@@ -72,16 +86,46 @@ WARPS = 8
 ENTRY = {torch.float32: "shdr_lin_stem_f32", torch.bfloat16: "shdr_lin_stem_bf16"}
 
 
+# bf16 (csrc/lin_stem.cu, the bf16 section)
+RING_SLOTS_BF16 = 4          # B ring slots, one kernel row (7 k-steps, 14 KB) each
+CONSUMER_WARPS = 8           # two warpgroups run the MMAs
+PRODUCER_WARPS = 8           # two warpgroups build the features
+
+
 def smem_bytes(dtype=torch.float32) -> int:
-    """Dynamic shared memory of a launch: B ring, feature planes (f32: hi and
-    lo of 8 channels; bf16: 8 planes of channel pairs), image, channel table."""
+    """Dynamic shared memory of a launch.  f32: B ring, hi and lo feature
+    planes of 8 channels, image, channel table; bf16: ``plan_bf16``."""
     if dtype == torch.bfloat16:
-        ring_bytes = RING_SLOTS * SLICE_KSTEPS * OUT_F * CHUNK_BF16 * 2
-        planes = CHUNK_BF16 // 2
-    else:
-        ring_bytes = RING_SLOTS * SLICE_KSTEPS * 2 * OUT_F * CHUNK * 4
-        planes = 2 * CHUNK
-    return ring_bytes + 4 * (planes * CHANNEL_STRIDE + 3 * (FIELD + 2) ** 2 + 3 * C_PAD)
+        return plan_bf16()["smem_bytes"]
+    ring_bytes = RING_SLOTS * SLICE_KSTEPS * 2 * OUT_F * CHUNK * 4
+    return ring_bytes + 4 * (2 * CHUNK * CHANNEL_STRIDE + 3 * (FIELD + 2) ** 2 + 3 * C_PAD)
+
+
+def plan_bf16(tile_rows: int = TILE) -> dict:
+    """The bf16 launch's layout in bytes (``lin_stem_bf16_kernel``), for an
+    output tile of ``tile_rows`` x 16: the B ring (``slice_bytes`` a slot),
+    two feature buffers of two 8-channel groups (``group_bytes`` apart: the
+    descriptors' lead) of ``field_rows`` x ROW 16-byte rows, the f32 image,
+    the mbarriers; the descriptors' stride (one output row, two receptive
+    rows); the threads (consumers, producers, one loader warp), the blocks
+    an SM and whether it fits (at 32 rows the two buffers beside the ring do
+    not)."""
+    field_rows = 2 * tile_rows + KSIZE - 2
+    group_bytes = field_rows * ROW * 16
+    feat_bytes = 2 * group_bytes
+    slice_bytes = SLICE_KSTEPS * OUT_F * CHUNK_BF16 * 2
+    feat_offset = RING_SLOTS_BF16 * slice_bytes
+    img_offset = feat_offset + 2 * feat_bytes
+    bar_offset = -(-(img_offset + 3 * (field_rows + 2) * (FIELD + 2) * 4) // 8) * 8
+    smem = bar_offset + 8 * (2 * RING_SLOTS_BF16 + 4)
+    return {"tile": (tile_rows, TILE), "field_rows": field_rows, "ring_slots": RING_SLOTS_BF16,
+            "slice_bytes": slice_bytes, "slices": CHUNKS_BF16 * KSIZE, "group_bytes": group_bytes,
+            "feat_bytes": feat_bytes, "feat_offset": feat_offset, "img_offset": img_offset,
+            "bar_offset": bar_offset, "smem_bytes": smem, "lead_bytes": group_bytes,
+            "stride_bytes": 2 * ROW * 16, "kstep_bytes": OUT_F * CHUNK_BF16 * 2,
+            "consumer_warps": CONSUMER_WARPS, "producer_warps": PRODUCER_WARPS,
+            "threads": 32 * (CONSUMER_WARPS + PRODUCER_WARPS + 1),
+            "fits": smem <= SMEM_LIMIT, "blocks_per_sm": SM_SMEM // (smem + BLOCK_RESERVED)}
 
 
 def lin_feature_stem_plain(x, kernel7, bias):

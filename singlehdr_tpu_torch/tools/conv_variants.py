@@ -4,9 +4,9 @@ conv launch by layer, on one card, in turns: tree, variants..., tree.
   python3 -m singlehdr_tpu_torch.tools.conv_variants [--variants a,b] [--out FILE]
 
 A variant is the tree's ``csrc/conv2_pool.cu`` with a few text edits, or the
-tree's kernel under another packing plan (``VARIANTS``); the edited sources
-build with ``_build.NVCC_FLAGS`` into their own libraries under
-``build/kernels/variants/``.  Each variant's bf16 K2/K4 cases
+tree's kernel under another packing plan (``VARIANTS``); the edited source
+builds with ``_build.NVCC_FLAGS`` into a library of its own under
+``build/kernels/variants/``, beside the tree's other sources compiled once.  Each variant's bf16 K2/K4 cases
 (``chip_smoke.kernel_cases``) are first held to the plain versions within
 chip_smoke's bf16 bound, then timed with ``chip_smoke.device_ms``: each stage
 call and each of its two conv launches alone.  Variants:
@@ -90,35 +90,40 @@ def edited_source(name: str, text: str) -> str:
     return text
 
 
-def build_variants(names) -> dict:
-    """Compile every source variant (all nvcc processes at once) and load
-    each library with the tree's C signatures."""
+def build_variants(names, source: str = "conv2_pool.cu", edit=edited_source) -> dict:
+    """Compile every source variant, all nvcc processes at once: the tree's
+    other sources once, and ``source`` with ``edit(name, text)`` applied once
+    a variant; link each variant and load it with the tree's C signatures."""
     from singlehdr_tpu_torch.ops.cuda import _build
 
     nvcc = _build._nvcc()
-    procs = []
+    rest = _build.BUILD_DIR / "variants" / f"rest_of_{source.split('.')[0]}"
+    rest.mkdir(parents=True, exist_ok=True)
+    for src in _build.sources():
+        (rest / src.name).write_text(src.read_text())
+
+    def compile_(cu, out_dir):
+        return subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-I", str(rest), "-c", "-o", str(out_dir / f"{cu.stem}.o"),
+             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    procs = [compile_(cu, rest) for cu in sorted(rest.glob("*.cu")) if cu.name != source]
     for name in names:
         d = _build.BUILD_DIR / "variants" / name
         d.mkdir(parents=True, exist_ok=True)
-        for src in _build.sources():
-            text = src.read_text()
-            if src.name == "conv2_pool.cu":
-                text = edited_source(name, text)
-            (d / src.name).write_text(text)
-        for cu in sorted(d.glob("*.cu")):
-            procs.append(subprocess.Popen(
-                [nvcc, *_build.NVCC_FLAGS, "-I", str(d), "-c", "-o", str(d / f"{cu.stem}.o"), str(cu)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        (d / source).write_text(edit(name, (_build.CSRC / source).read_text()))
+        procs.append(compile_(d / source, d))
     for p in procs:
         msg = p.communicate()[0]
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {p.args[-1]}:\n{msg[-3000:]}")
+    others = sorted(str(o) for o in rest.glob("*.o") if o.stem != source.split(".")[0])
     libs = {}
     for name in names:
         d = _build.BUILD_DIR / "variants" / name
         so = d / "lib.so"
         subprocess.run([nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(so),
-                        *sorted(map(str, d.glob("*.o")))], check=True)
+                        str(d / f"{source.split('.')[0]}.o"), *others], check=True)
         lib = ctypes.CDLL(str(so))
         for fn, argtypes in _build._SIGNATURES.items():
             getattr(lib, fn).argtypes = argtypes

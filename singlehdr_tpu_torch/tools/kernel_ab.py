@@ -23,8 +23,9 @@ seeded pipeline, and times with that checkout's own ``chip_smoke`` helpers:
 - the serving numbers of ``chip_smoke`` phase 7: p50 of ``predict_batch`` at
   batch 1 (20 runs) and batch 8 (8 runs), 512^2, and the per-net device times
   at batch 8;
-- a digest of the f32 K2/K4 conv kernels' SASS (``cuobjdump``), equal for
-  two checkouts whose f32 kernels compiled to the same instructions.
+- digests of the f32 K2/K4 conv kernels' SASS and of the f32 K3 kernel's
+  (``cuobjdump``), each equal for two checkouts whose f32 kernels compiled
+  to the same instructions.
 
 ``--dtype bfloat16`` times the bf16 compute dtype throughout (the bf16 cases
 of K2-K4, the bf16 pipeline and joint step; K1 and K1-bwd stay f32): every
@@ -90,31 +91,37 @@ out = {"card": cs.card_line(), "dtype": sys.argv[1], "cases": [], "serving": {},
        "joint_step_ms": None}
 
 
-def f32_conv_sass_digest():
+def f32_sass_digests():
     """sha256 of the SASS bodies of K2/K4's f32 conv instantiations, ordered by
-    (kernel size, N block, mode), so that two checkouts whose f32 kernels
-    compiled to the same instructions read alike (the template arguments
-    other than these, and the function names, are left out)."""
+    (kernel size, N block, mode), and of K3's f32 kernel, so that two
+    checkouts whose f32 kernels compiled to the same instructions read alike
+    (the template arguments other than these, the function names and the
+    padding between columns are left out)."""
     import hashlib, re, subprocess
     from pathlib import Path
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(_build.build())], capture_output=True, text=True,
                           check=True).stdout
-    bodies = []
+    conv, stem = [], []
     for fn in sass.split("Function : ")[1:]:
         name, body = fn.split("\n", 1)
         # f32 (where one template serves both dtypes, its bf16 instantiations carry Lb1)
         if "conv_gemm_kernelI" in name and "ILb1E" not in name:
             ks, bn = map(int, re.findall(r"Li(\d+)E", name)[:2])
             mode = int(re.search(r"ModeE(\d)", name).group(1))
-            bodies.append(((ks, bn, mode), body))
-    h = hashlib.sha256()
-    for _, body in sorted(bodies):
-        h.update(body.encode())
-    return f"{h.hexdigest()[:16]} ({len(bodies)} instantiations)"
+            conv.append(((ks, bn, mode), body))
+        elif re.search(r"lin_stem_kernel(E|ILb0E)", name):
+            stem.append((0, body))
+
+    def digest(bodies):  # whitespace-normalised: cuobjdump pads to the library's longest name
+        h = hashlib.sha256()
+        for _, body in sorted(bodies):
+            h.update(" ".join(body.split()).encode())
+        return f"{h.hexdigest()[:16]} ({len(bodies)} instantiations)"
+    return digest(conv), digest(stem)
 
 
-out["f32_conv_sass"] = f32_conv_sass_digest()
+out["f32_conv_sass"], out["f32_stem_sass"] = f32_sass_digests()
 
 
 def conv_launches(name, args):
@@ -234,7 +241,8 @@ def main() -> int:
         sums = {}
         for name, _, ms in r["cases"]:
             sums[name] = sums.get(name, 0.0) + ms
-        print(f"{root}  {r['dtype']}  [{r['card']}]  f32 conv SASS {r['f32_conv_sass']}", flush=True)
+        print(f"{root}  {r['dtype']}  [{r['card']}]  f32 conv SASS {r['f32_conv_sass']}, f32 K3 "
+              f"SASS {r['f32_stem_sass']}", flush=True)
         for name, label, ms in r["cases"]:
             print(f"  {name:34s} {label:36s} {ms:.4f} ms", flush=True)
         print("  sums " + ", ".join(f"{k} {v:.4f} ms" for k, v in sums.items()) +

@@ -33,7 +33,7 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 KINDS = (
     ("apply_rf", "hand K1"),
     ("conv_gemm", "hand K2 + K4"),  # conv_gemm_kernel (f32), conv_gemm_bf16_kernel
-    ("lin_stem_kernel", "hand K3"),
+    ("lin_stem", "hand K3"),  # lin_stem_kernel (f32), lin_stem_bf16_kernel
     ("fft", "cuDNN FFT convs"),
     ("xmma", "cuDNN convs"),
     ("implicit", "cuDNN convs"),

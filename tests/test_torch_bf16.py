@@ -28,6 +28,7 @@ magnitude.  Each bound below is stated in those terms with what was measured.
 """
 
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -65,7 +66,7 @@ from singlehdr_tpu_torch.ops.resize import same_pads
 from singlehdr_tpu_torch.train import steps
 from singlehdr_tpu_torch.train.state import TrainState, make_optimizer
 
-from test_torch_lin_stem_gemm import _feature, _gather_offsets, _reflect_clamp
+from test_torch_lin_stem_gemm import _feature, _reflect_clamp
 from test_torch_models import seeded_variables
 from test_torch_train import _jax_state, _port_args, _recording_tx, _variables
 
@@ -1167,76 +1168,379 @@ def test_bf16_a_fragment_loads_are_bank_conflict_free(c, f, k):
                                     + 16 * np.arange(8))
 
 
-def simulate_stem_bf16(x, k7, bias):
-    """What one ``shdr_lin_stem_bf16`` launch writes: the features in f32
-    from the bf16 image, rounded once and paired into words (channel 2q in
-    the low half of plane q), the A registers read from the pair planes with
-    the f32 design's word offsets, B through the descriptor, float64 sums,
-    the output rounded to bf16."""
+# K3 in bf16 (csrc/lin_stem.cu, lin_stem_bf16_kernel): a producer warpgroup
+# builds each 16-channel chunk's features into one of two channel-inner
+# buffers, two consumer warpgroups run wgmma on them and on the B ring by
+# descriptor, one loader thread copies B with cp.async.bulk; mbarriers hand
+# buffers and ring slots over.
+
+
+def _stem_constants():
+    """The constexpr ints and bools of csrc/lin_stem.cu (and common.cuh),
+    evaluated in order: the kernel's own plan."""
+    from singlehdr_tpu_torch.ops.cuda import _build
+
+    env = {}
+    for name in ("common.cuh", "lin_stem.cu"):
+        text = (_build.CSRC / name).read_text()
+        for key, expr in re.findall(r"^constexpr (?:int|bool) (\w+) = ([^;]+);", text, re.M):
+            expr = expr.replace("true", "True").replace("false", "False").replace("/", "//")
+            env[key] = eval(expr, {}, dict(env))
+    return env
+
+
+def test_bf16_stem_plan_is_the_kernels():
+    """``plan_bf16`` mirrors the kernel's constants: the ring, the roles, the
+    buffers' lead and stride and every shared-memory offset."""
+    c, p = _stem_constants(), k3.plan_bf16()
+    assert (c["TO"], c["kRingBf16"], c["kConsumerWarps"], c["kProducerWarps"]) == \
+        (k3.TILE, p["ring_slots"], p["consumer_warps"], p["producer_warps"])
+    assert (c["kSliceBytesBf16"], c["kSlicesBf16"], c["kKstepBytesBf16"]) == \
+        (p["slice_bytes"], p["slices"], p["kstep_bytes"])
+    assert (c["kGroupBytes"], c["kOutRowBytes"], c["kFeatBytes"]) == \
+        (p["lead_bytes"], p["stride_bytes"], p["feat_bytes"])
+    assert (c["kFeatOffsetBf16"], c["kImgOffsetBf16"], c["kBarOffsetBf16"], c["kSmemBf16"]) == \
+        (p["feat_offset"], p["img_offset"], p["bar_offset"], p["smem_bytes"])
+    assert c["kThreadsBf16"] == p["threads"] and c["kMaxSmemBytes"] == cg.SMEM_LIMIT
+
+
+def _stem_descriptor_starts():
+    """Every feature-operand start a consumer's descriptors name, as byte
+    offsets into a buffer: (ky, kx, consumer warpgroup)."""
+    return np.array([(ky * k3.ROW + (kx & 1) * k3.PARITY_WIDTH + (kx >> 1) + 8 * cw) * 16
+                     for ky in range(7) for kx in range(7) for cw in range(2)])
+
+
+def test_bf16_stem_plan_fits_the_card():
+    """One block an SM within 227 KB; the descriptors' lead and stride and
+    every start address fit their 14-bit fields (16-byte units), every core
+    matrix starts on 16 bytes, and an operand's last core matrix stays in
+    its buffer (features: N = 128 pixels, 16 core matrices) or its slot
+    (weights).  A 32-row tile's two buffers do not fit beside the ring."""
+    p = k3.plan_bf16()
+    assert p["fits"] and p["smem_bytes"] <= cg.SMEM_LIMIT and p["blocks_per_sm"] == 1
+    assert p["threads"] == 32 * (8 + 8 + 1)
+    for field in (p["lead_bytes"], p["stride_bytes"], p["smem_bytes"], p["slice_bytes"]):
+        assert field % 16 == 0 and field >> 4 < 2 ** 14
+    assert p["feat_offset"] % 16 == 0 and p["feat_bytes"] % 16 == 0 and p["bar_offset"] % 8 == 0
+    assert p["img_offset"] >= p["feat_offset"] + 2 * p["feat_bytes"]
+    starts = _stem_descriptor_starts()
+    assert (starts % 16 == 0).all()
+    last = starts.max() + 15 * p["stride_bytes"] + p["lead_bytes"] + 128
+    assert last <= p["feat_bytes"]
+    w_last = 6 * p["kstep_bytes"] + 7 * 256 + 128 + 128  # tap 6: n8 group 7, k half 1
+    assert w_last <= p["slice_bytes"]
+    assert not k3.plan_bf16(32)["fits"]
+    assert k3.plan_bf16(32)["lead_bytes"] >> 4 < 2 ** 14
+
+
+def test_bf16_stem_weight_rows_reproduce_conv2d():
+    """The bf16 B rows in K order (chunk, tap, 16 channels; 93 padded to 96
+    with zero rows) times the im2col of the built features is the stride-2
+    SAME conv, in float64; the packing puts a k-step's rows in wgmma's core
+    matrices, as the consumers' weight descriptors read them."""
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.rand(2, 3, 19, 22).astype(np.float32))
+    k7 = torch.from_numpy((rs.randn(64, N_FEATURES, 7, 7) * 0.05).astype(np.float32)).to(BF16)
+    rows = k3.stem_weight_rows_bf16(k7)
+    assert rows.dtype == BF16 and rows.shape == (k3.CHUNKS_BF16 * 49 * 16, 64)
+    r = rows.double().reshape(k3.CHUNKS_BF16, 49, 16, 64)
+    chan = torch.arange(k3.CHUNKS_BF16)[:, None, None] * 16 + torch.arange(16)
+    assert not r[(chan >= N_FEATURES).expand(k3.CHUNKS_BF16, 49, 16)].any()
+    feats = linearization_features(x).double()
+    pt, pb = same_pads(19, 7, 2)
+    pl, pr = same_pads(22, 7, 2)
+    fp = F.pad(F.pad(feats, (pl, pr, pt, pb)), (0, 0, 0, 0, 0, k3.C_PAD - N_FEATURES))
+    ho, wo = 10, 11
+    taps = torch.stack([fp[:, :, ky:ky + 2 * ho:2, kx:kx + 2 * wo:2]
+                        for ky in range(7) for kx in range(7)], 1)  # [b, tap, c, ho, wo]
+    a = taps.reshape(2, 49, k3.CHUNKS_BF16, 16, ho, wo).permute(0, 4, 5, 2, 1, 3)
+    got = (a.reshape(2 * ho * wo, -1) @ rows.double()).reshape(2, ho, wo, -1).permute(0, 3, 1, 2)
+    want = F.conv2d(F.pad(feats, (pl, pr, pt, pb)), k7.double(), stride=2)
+    assert torch.abs(got - want).max() <= 1e-12 * torch.abs(want).max()
+    slot = _bits(k3.pack_stem_weights(k7)).reshape(k3.CHUNKS_BF16 * 7, -1)
+    p = k3.plan_bf16()
+    bits = _bits(rows).reshape(k3.CHUNKS_BF16, 49, 16, 64)
+    for s, kx in ((0, 0), (17, 4), (41, 6)):
+        a_w = _desc_matrix(slot[s], _desc(kx * p["kstep_bytes"], 128, 256), 64)  # [64 n, 16 k]
+        np.testing.assert_array_equal(a_w, _from_bits(bits[s // 7, 7 * (s % 7) + kx]).T)
+
+
+def test_bf16_stem_producer_stores_are_bank_conflict_free():
+    """The producers' 16-byte stores of a warp (consecutive rows of one
+    8-channel group), in the 8-lane phases the hardware serves them in,
+    touch each bank once; so does every 128-byte core matrix a feature
+    descriptor names."""
+    p = k3.plan_bf16()
+    rows = p["group_bytes"] // 16
+    threads = 32 * p["producer_warps"]
+
+    def distinct(byte_rows):
+        banks = ((np.asarray(byte_rows)[:, None] + 4 * np.arange(4)) // 4 % 32).ravel()
+        return len(np.unique(banks)) == len(banks)
+
+    for k in range(-(-rows // threads)):
+        for warp in range(p["producer_warps"]):
+            e = k * threads + 32 * warp + np.arange(32)
+            e = e[e < rows]
+            for h in range(2):
+                addr = p["feat_offset"] + h * p["group_bytes"] + 16 * e
+                for q in range(0, addr.size, 8):
+                    assert distinct(addr[q:q + 8]), (k, warp, h, q)
+    for start in _stem_descriptor_starts():
+        for core in range(16):
+            assert distinct(start + core * p["stride_bytes"] + 16 * np.arange(8))
+
+
+class _Mbarrier:
+    """An mbarrier: a phase completes when its ``count`` arrivals are in and
+    its expected transaction bytes have landed; a wait on parity P passes
+    once the phase of that parity has completed (the phase count's parity
+    differs from P)."""
+
+    def __init__(self, count):
+        self.count, self.pending, self.tx, self.phase = count, count, 0, 0
+
+    def arrive(self, tx=0):
+        self.tx += tx
+        self.pending -= 1
+        self._complete()
+
+    def complete_tx(self, n):
+        self.tx -= n
+        self._complete()
+
+    def _complete(self):
+        assert self.pending >= 0, "more arrivals than the barrier's count"
+        if self.pending == 0 and self.tx == 0:
+            self.phase += 1
+            self.pending = self.count
+
+    def passed(self, parity):
+        return (self.phase & 1) != parity
+
+
+def _stem_chunk_rows(img, j, ry0, rx0, h, w):
+    """Chunk j's buffer as the producers write it: uint16 [2 groups, rows,
+    8]; row e is receptive row e // ROW at parity entry e % ROW, each feature
+    computed in f32 and rounded to bf16 once, zeros outside the image (and
+    at the odd plane's unused entry)."""
+    e = np.arange(k3.FIELD * k3.ROW)
+    ry, idx = e // k3.ROW, e % k3.ROW
+    rx = np.where(idx < k3.PARITY_WIDTH, 2 * idx, 2 * (idx - k3.PARITY_WIDTH) + 1)
+    inside = (rx < k3.FIELD) & (ry0 + ry >= 0) & (ry0 + ry < h) & (rx0 + rx >= 0) & (rx0 + rx < w)
+    a, b = ry + 1, np.minimum(rx, k3.FIELD - 1) + 1
+    vals = np.zeros((16, e.size), np.float32)
+    for cl in range(16):
+        if 16 * j + cl < N_FEATURES:
+            vals[cl] = np.where(inside, _feature(img, 16 * j + cl, a, b), np.float32(0))
+    bits = _bits(torch.from_numpy(vals).to(BF16))  # [16, rows]
+    return bits.reshape(2, 8, e.size).transpose(0, 2, 1)
+
+
+def simulate_stem_bf16(x, k7, bias, seed=0, blocks=2):
+    """What one ``shdr_lin_stem_bf16`` launch of ``blocks`` blocks writes,
+    each block walking the tiles blockIdx, + blocks, ... with its slice and
+    chunk counts running on across them.  A block's three roles run in an
+    interleaving drawn from ``seed`` over a model of the kernel's mbarriers:
+    the loader's bulk copies of B slices into the ring (landing later, in any
+    order), the producer's image staging and chunks into the two feature
+    buffers (in pieces), the consumer warpgroups' wgmma groups, one a kernel
+    row, each reading shared memory when it completes (in order, at the
+    latest when ``wgmma_wait`` needs it), the releases of slots and buffers
+    and each tile's epilogue.  Shared memory starts as bf16 NaNs, so a read
+    of a row nobody wrote, or of a slot or buffer refilled too early, shows
+    in the output.  Operands are resolved from the descriptors' bits into
+    core matrices, products summed in float64; the epilogue maps each
+    thread's accumulators to channels and pixels as the kernel does, rounds
+    to bf16 and stores NCHW."""
+    p = k3.plan_bf16()
     bsz, _, h, w = x.shape
     ho, wo = -(-h // 2), -(-w // 2)
     pad_t, pad_l = same_pads(h, 7, 2)[0], same_pads(w, 7, 2)[0]
-    field, row, pw, cs, cc = k3.FIELD, k3.ROW, k3.PARITY_WIDTH, k3.CHANNEL_STRIDE, k3.CHUNK_BF16
-    ring = _bits(k3.pack_stem_weights(k7)).reshape(k3.CHUNKS_BF16, 49, 64 * 16)
-    offs = _gather_offsets()  # word offsets [tap, warp, mt, a0..a3, lane]
-    xf = x.float().numpy()
-    bias = bias.numpy()
+    wpk = _bits(k3.pack_stem_weights(k7)).reshape(p["slices"], -1)
+    slots, slice_bytes, field = p["ring_slots"], p["slice_bytes"], k3.FIELD
+    xf, bias = x.float().numpy(), bias.numpy()
     out = np.full((bsz, 64, ho, wo), np.nan, np.float32)
-    r = np.arange(field)
+    rng = np.random.RandomState(seed)
     lane = np.arange(32)
     g, t = lane >> 2, lane & 3
-    for b in range(bsz):
-        for oy0 in range(0, ho, k3.TILE):
-            for ox0 in range(0, wo, k3.TILE):
+    tiles = [(b, oy0, ox0) for b in range(bsz) for oy0 in range(0, ho, k3.TILE)
+             for ox0 in range(0, wo, k3.TILE)]
+    for block in range(min(blocks, len(tiles))):
+        mine = tiles[block::blocks]
+        mem = np.full(p["smem_bytes"] // 2, 0xFFFF, np.uint16)
+        full_b = [_Mbarrier(1) for _ in range(slots)]
+        empty_b = [_Mbarrier(8) for _ in range(slots)]
+        full_f = [_Mbarrier(32 * p["producer_warps"]) for _ in range(2)]
+        empty_f = [_Mbarrier(8) for _ in range(2)]
+        copies, groups, acc = [], [[], []], [None, None]
+
+        def loader():
+            q = 0
+            for _ in mine:
+                for s in range(p["slices"]):
+                    slot = q % slots
+                    if q >= slots:
+                        yield empty_b[slot], (q // slots - 1) & 1
+                    full_b[slot].arrive(tx=slice_bytes)
+                    copies.append((slot, s))
+                    q += 1
+                    yield None
+
+        def producer():
+            j = 0
+            for b, oy0, ox0 in mine:
                 ry0, rx0 = 2 * oy0 - pad_t, 2 * ox0 - pad_l
                 gy = _reflect_clamp(ry0 - 1 + np.arange(field + 2), h)
                 gx = _reflect_clamp(rx0 - 1 + np.arange(field + 2), w)
                 img = xf[b][:, gy][:, :, gx]
-                a_idx, b_idx = np.meshgrid(r + 1, r + 1, indexing="ij")
-                inside = ((ry0 + r >= 0) & (ry0 + r < h))[:, None] & \
-                    ((rx0 + r >= 0) & (rx0 + r < w))[None, :]
-                dest = r[:, None] * row + (r[None, :] & 1) * pw + (r[None, :] >> 1)
-                acc = np.zeros((k3.WARPS, 2, 16, 64))
-                for j in range(k3.CHUNKS_BF16):
-                    feats = np.zeros((cc, field, field), np.float32)
-                    for cl in range(cc):
-                        if j * cc + cl < N_FEATURES:
-                            v = _feature(img, j * cc + cl, a_idx, b_idx)
-                            feats[cl] = np.where(inside, v, np.float32(0))
-                    fb = _bits(torch.from_numpy(feats).to(BF16)).astype(np.uint32)
-                    planes = np.zeros((cc // 2) * cs, np.uint32)
-                    where = (np.arange(cc // 2)[:, None, None] * cs + dest).reshape(-1)
-                    planes[where] = (fb[0::2] | (fb[1::2] << 16)).reshape(-1)
-                    regs = np.moveaxis(planes[offs], 3, -1)  # [tap, warp, mt, 32, 4]
-                    a = _a_matrix_bf16(regs)                 # [tap, warp, mt, 16, 16]
-                    bm = np.stack([_from_bits(_b_bf16(ring[j, ks], 64)) for ks in range(49)])
-                    acc += np.einsum("swmrk,skn->wmrn", a, bm)
-                for warp in range(k3.WARPS):
-                    for mt in range(2):
-                        oy = oy0 + warp * 2 + mt
-                        if oy >= ho:
-                            continue
-                        v = np.maximum(acc[warp, mt].astype(np.float32) + bias, 0)
-                        ox = ox0 + np.arange(16)
-                        m = ox < wo
-                        out[b, :, oy, ox[m]] = _round_bf16(v[m])
+                for c in range(k3.CHUNKS_BF16):
+                    if j >= 2:
+                        yield empty_f[j & 1], ((j >> 1) - 1) & 1
+                    rows = _stem_chunk_rows(img, c, ry0, rx0, h, w)
+                    base = (p["feat_offset"] + (j & 1) * p["feat_bytes"]) // 2
+                    for piece in np.array_split(np.arange(rows.shape[1]), 4):
+                        for grp in range(2):
+                            at = base + grp * p["group_bytes"] // 2 + 8 * piece
+                            mem[at[:, None] + np.arange(8)] = rows[grp, piece]
+                        yield None
+                    for _ in range(32 * p["producer_warps"]):
+                        full_f[j & 1].arrive()
+                    j += 1
+
+        def release(q):
+            for _ in range(4):  # lane 0 of each warp of the warpgroup
+                empty_b[q % slots].arrive()
+                if q % 7 == 6:
+                    empty_f[(q // 7) & 1].arrive()
+
+        def consumer(cw):
+            q = 0
+            for b, oy0, ox0 in mine:
+                acc[cw] = np.zeros((64, 128))  # M = 64 channels, N = 16 rows x 8 columns
+                for s in range(p["slices"]):
+                    j, ky = divmod(q, 7)
+                    if ky == 0:
+                        yield full_f[j & 1], (j >> 1) & 1
+                    yield full_b[q % slots], (q // slots) & 1
+                    wst = (q % slots) * slice_bytes
+                    fst = p["feat_offset"] + (j & 1) * p["feat_bytes"]
+                    ops = []
+                    for kx in range(7):
+                        col = (kx & 1) * k3.PARITY_WIDTH + (kx >> 1)
+                        f = fst + (ky * k3.ROW + col + 8 * cw) * 16
+                        ops.append((_desc(wst + kx * p["kstep_bytes"], 128, 256),
+                                    _desc(f, p["lead_bytes"], p["stride_bytes"])))
+                    groups[cw].append(ops)
+                    q += 1
+                    yield "wgmma_wait", 1
+                    if s > 0:
+                        release(q - 2)
+                yield "wgmma_wait", 0
+                release(q - 1)
+                _stem_epilogue(out, acc[cw], cw, b, oy0, ox0, bias)
+
+        def run_group(cw):  # wgmma m64n128k16: D += A (weights) B (features)^T
+            for a_desc, b_desc in groups[cw].pop(0):
+                acc[cw] += _desc_matrix(mem, a_desc, 64) @ _desc_matrix(mem, b_desc, 128).T
+
+        roles = {"loader": loader(), "producer": producer(), 0: consumer(0), 1: consumer(1)}
+        waits = dict.fromkeys(roles)
+        while roles or copies or groups[0] or groups[1]:
+            moves = []
+            for name in roles:
+                wait = waits[name]
+                if wait is None or (wait[0] == "wgmma_wait" and len(groups[name]) <= wait[1]) \
+                        or (wait[0] != "wgmma_wait" and wait[0].passed(wait[1])):
+                    moves.append(("role", name))
+            moves += [("copy", i) for i in range(len(copies))]
+            moves += [("group", cw) for cw in range(2) if groups[cw]]
+            assert moves, "deadlock: every role waits"
+            kind, key = moves[rng.randint(len(moves))]
+            if kind == "copy":
+                slot, s = copies.pop(key)
+                mem[slot * slice_bytes // 2:(slot + 1) * slice_bytes // 2] = wpk[s]
+                full_b[slot].complete_tx(slice_bytes)
+            elif kind == "group":
+                run_group(key)
+            else:
+                try:
+                    waits[key] = next(roles[key])
+                except StopIteration:
+                    del roles[key]
     return out
 
 
-@pytest.mark.parametrize("hw", [(37, 50), (32, 32)], ids=["37x50", "one_tile"])
-def test_simulated_bf16_stem_matches_the_bf16_plain_stem(hw):
+def _stem_epilogue(out, d, cw, b, oy0, ox0, bias):
+    """A consumer warpgroup's stores: thread (warp 4 cw + wq, lane g t) holds
+    d[4 r + i] = D[16 wq + g + 8 (i >> 1), 8 r + 2t + (i & 1)] of its
+    warpgroup's accumulator D (the m64n128k16 fragment): channel
+    16 wq + g + 8 (i >> 1), output row r, column 8 cw + 2t + (i & 1)."""
+    _, _, ho, wo = out.shape
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    for wq in range(4):
+        for i in range(4):
+            n = 16 * wq + g + 8 * (i >> 1)
+            for r in range(k3.TILE):
+                oy, ox = oy0 + r, ox0 + 8 * cw + 2 * t + (i & 1)
+                if oy < ho:
+                    v = d[n, 8 * r + 2 * t + (i & 1)].astype(np.float32) + bias[n]
+                    m = ox < wo
+                    out[b, n[m], oy, ox[m]] = _round_bf16(np.maximum(v, 0))[m]
+
+
+def _stem_case(hw):
     rs = np.random.RandomState(hw[0] + hw[1])
     x = torch.from_numpy(rs.rand(1, 3, *hw).astype(np.float32)).to(BF16)
     k7 = torch.from_numpy((rs.randn(64, N_FEATURES, 7, 7) * np.sqrt(2.0 / (93 * 49))
                            ).astype(np.float32)).to(BF16)
     bias = torch.from_numpy((rs.randn(64) * 0.1).astype(np.float32))
-    pk = k3.pack_stem_weights(k7)
-    assert pk.dtype == BF16 and pk.shape == (1, k3.CHUNKS_BF16, 49, 1, 8, 2, 8, 8)
-    got = simulate_stem_bf16(x, k7, bias)
+    return x, k7, bias
+
+
+def _check_simulated_stem(got, x, k7, bias):
     want = k3.lin_feature_stem_plain(x, k7, bias).float().numpy()
-    assert got.shape == want.shape and np.isfinite(got).all()
+    assert got.shape == want.shape and np.isfinite(got).all(), "every output element is written"
     assert np.abs(got - want).max() <= ULP * np.abs(want).max()
     assert np.mean(got == want) > 0.9
+
+
+@pytest.mark.parametrize("hw", [(37, 50), (32, 32), (37, 53)], ids=["37x50", "one_tile", "37x53"])
+def test_simulated_bf16_stem_matches_the_bf16_plain_stem(hw):
+    """One launch of the tree's orientation, lane by lane, against the bf16
+    plain stem: both sum the same exact products (f32 there, float64 here),
+    so a value differs only where the two round to neighbouring bf16 values.
+    (37, 53): ragged tiles along both axes, odd SAME pads, REFLECT at every
+    edge of the image inside the tiles' fields."""
+    x, k7, bias = _stem_case(hw)
+    pk = k3.pack_stem_weights(k7)
+    assert pk.dtype == BF16 and pk.shape == (1, k3.CHUNKS_BF16, 49, 1, 8, 2, 8, 8)
+    _check_simulated_stem(simulate_stem_bf16(x, k7, bias, seed=hw[1]), x, k7, bias)
+
+
+@pytest.mark.parametrize("seed,blocks", [(1, 1), (2, 3)])
+def test_simulated_bf16_stem_interleavings_agree(seed, blocks):
+    """Other interleavings of the roles, and other numbers of blocks (one
+    block walking all four tiles; three, one of which takes two), write the
+    same stem."""
+    x, k7, bias = _stem_case((37, 53))
+    got = simulate_stem_bf16(x, k7, bias, seed=seed, blocks=blocks)
+    _check_simulated_stem(got, x, k7, bias)
+    np.testing.assert_array_equal(got, simulate_stem_bf16(x, k7, bias, seed=seed + 10))
+
+
+def test_stem_variants_edit_the_kernel_source_once():
+    """tools/stem_variants' variants are text edits of the tree's
+    csrc/lin_stem.cu: each edit matches exactly once."""
+    from singlehdr_tpu_torch.ops.cuda import _build
+    from singlehdr_tpu_torch.tools import stem_variants as sv
+
+    text = (_build.CSRC / "lin_stem.cu").read_text()
+    for name in sv.VARIANTS:
+        assert sv.edited_source(name, text) != text
+    assert set(sv.VARIANTS) == set(sv.CHOICES) | set(sv.ABLATIONS)
 
 
 # --- (f) the training CLIs in bf16 ------------------------------------------------
