@@ -1,9 +1,11 @@
 """GPU smoke run of the PyTorch port: builds the five CUDA kernels (K2-K4 in
-f32 and bf16), holds each against its plain PyTorch version at the serving
-and training shapes, serves a few requests through the port's HTTP server
-and trains the joint configuration through the ``joint_train`` CLI, both at
-the full published widths, in f32 and in the JAX package's bf16 compute
-dtype, and checks each path against the CPU plain path.
+f32 and bf16), holds each against its plain PyTorch version at the serving,
+training and HDR-Real shapes, serves a few requests through the port's HTTP
+server, trains the joint configuration through the ``joint_train`` CLI and
+runs the HDR-Real path (record conversion, finetune, whole and tiled
+inference, evaluation, HDR-Synth validation) through its CLIs, all at the
+full published widths, in f32 and in the JAX package's bf16 compute dtype,
+and checks each path against the CPU plain path.
 
   python3 chip_smoke.py          (from the root of a checkout, one CUDA card)
 
@@ -60,11 +62,29 @@ Phases (each prints its own lines; any failure exits non-zero):
              one finetune step at 4 x 256^2 on the card (K1-bwd's gx branch)
   11 timing  joint step at batch 16, 256^2: forward + loss, backward, Adam;
              K1-bwd's share of the step; f32, then bf16
+  12 real    the HDR-Real path through its CLIs, each path's launches counted
+             alone: convert_records (two seeded 512x768 HDR_gt/LDR_in pairs,
+             90 records of 256^2); finetune one epoch at batch 4 (23 steps,
+             the tail of 2 trained) from phase 9's joint checkpoint, f32 then
+             bf16, K1 = K1-bwd = steps and K2-K4 none; infer on two 1024x1536
+             photos, whole (K1 x1, K2 x6, K3 x1, K4 x2 an image) and tiled in
+             512^2 tiles, halo 64 (K2 x3 + K3 x1 for the 256^2 invCRF view,
+             K1 x1, K2 x6, K4 x2 a tile); evaluate (K1, K2 x6, K3, K4 x2 a
+             batch of 4); validate_synth on phase 9's files and joint
+             checkpoint; tiled vs whole in tile interiors, tiled and
+             evaluate vs the CPU plain path; K1-K4 vs plain at [4, *, 256^2]
+             and [1, *, 1088x1600] in f32 and bf16, K1-bwd on a finetune
+             step's C_pred and on 8-bit LDR input (grf bin by bin against
+             each bin's mass); one invCRF view's launches counted alone; the
+             finetune step in rounds of synchronised calls (wall, host
+             enqueue, the thread's CPU, other threads' CPU); batch and image
+             times
 The second-to-last line is the kernels' JSON record, one entry a (kernel,
 dtype): K2-K4's bf16 kernels as ``unet_stage2_bf16``, ``lin_feature_stem_bf16``
-and ``encoder_stage2_bf16`` (with each kernel's launches per serving batch and
-per training step, its bound, and the library route's time), the last the
-result.  K2 and K4 count one launch a stage call, which makes two launches
+and ``encoder_stage2_bf16`` (with each kernel's launches by path and per
+serving batch, training step, finetune step, evaluate batch, whole image and
+tile, its bound, the library route's time, and ``hdr_real_cases``, phase
+12's cases), the last the result.  K2 and K4 count one launch a stage call, which makes two launches
 of the conv kernel (``kernel_launches_per_stage``).
 
 Kernel, plain and library times (phases 3 and 8) are device times of
@@ -151,6 +171,37 @@ PLANTED_FAULTS = ("lin.crf_feature_net.stem_bn.weight", "lin.crf_feature_net.ste
 
 # per batch of the pipeline: launches of each kernel
 PER_BATCH = {"apply_rf": 1, "unet_stage2": 6, "lin_feature_stem": 1, "encoder_stage2": 2}
+# phase 12, the HDR-Real path at the reference finetune configuration (batch
+# 4 at 256^2 patches, lr 1e-5): two paired 512x768 HDR_gt/LDR_in images give
+# 45 patches each at stride 64, every one informative (levels 12-242)
+REAL_HW = (512, 768)
+REAL_PAIRS = 2
+REAL_RECORDS = 90
+REAL_BATCH = 4
+REAL_STEPS = -(-REAL_RECORDS // REAL_BATCH)   # the short tail batch is trained
+EVAL_BATCHES = REAL_RECORDS // REAL_BATCH     # and skipped by evaluate
+PHOTO_HW = (1024, 1536)   # two seeded photos through infer, whole and tiled
+N_PHOTOS = 2
+TILE, HALO = 512, 64
+# tiled vs whole (HdrPredictor) in tile interiors, max|err| / max|whole|: the
+# two differ by their inverse CRFs (a 256^2 INTER_AREA view against the whole
+# padded photo) and by context beyond the halo; on the CPU, 512x768 in 256^2
+# tiles with a seeded pipeline, 5.9e-3 (curves 1.7e-3 apart)
+TILED_WHOLE_REL_TOL = 2e-2
+# tiles of the global invCRF view (deq, then lin) and of each tile (deq, hal, ref)
+PER_VIEW = {"apply_rf": 0, "unet_stage2": 3, "lin_feature_stem": 1, "encoder_stage2": 0}
+PER_TILE = {"apply_rf": 1, "unet_stage2": 6, "lin_feature_stem": 0, "encoder_stage2": 2}
+# phase 12's finetune step alone: rounds of synchronised calls
+STEP_ROUNDS, STEP_CALLS = 5, 5
+# validate_synth: 2 batches of 8 at 512^2; K1 twice a batch (the capture's
+# CRF and B_pred), deq's K2 stages and lin's K3
+VALIDATE_BATCHES = 2
+PER_VALIDATE_BATCH = {"apply_rf": 2, "unet_stage2": 3, "lin_feature_stem": 1, "encoder_stage2": 0}
+# the card's tiled TiledPredictor vs the CPU plain path's: 256x320 in 128^2
+# tiles, halo 32, a 64^2 view (6 tiles); the bound is PATH_REL_TOL's
+TILED_SMALL = ((256, 320), 128, 32, 64)
+EVAL_DB_TOL = 1e-3      # evaluate's PSNRs, card vs CPU plain path, first two batches
+EVAL_SSIM_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12
 SLEEP_CYCLES_PER_S = 2.0e9  # device_ms's lead: at least the SM clock (1.98 GHz at most)
 F32_TENSOR_FLOPS = 495e12 / 3   # 3xTF32
@@ -319,14 +370,17 @@ def check_tensor_core_sass() -> None:
             raise AssertionError(f"{kernel} instantiations that spill: {spilled or 'none found'}")
 
 
-def kernel_cases(pipe, dev, dtype=torch.float32):
-    """(kernel name, case label, wrapper args) at the main path's shapes, with
-    the pipeline's own conv weights; inputs of a later stage are the plain
-    outputs of the stage before it.  The seeded init has zero biases, so the
-    cases add seeded biases to exercise the kernels' bias path.  For bf16 the
-    same cases of K2-K4 with x and the weights rounded to bf16 (the biases
-    stay f32), as a bf16 net hands them over."""
-    cases = _kernel_cases_f32(pipe, dev)
+def kernel_cases(pipe, dev, dtype=torch.float32, b: int = KERNEL_BATCH, hw=(SERVE_HW + 64,) * 2,
+                 odd: bool = True):
+    """(kernel name, case label, wrapper args) at the main path's shapes (the
+    serving path's [b, 3, 576, 576] unless ``b`` and ``hw`` say otherwise),
+    with the pipeline's own conv weights; inputs of a later stage are the
+    plain outputs of the stage before it.  The seeded init has zero biases,
+    so the cases add seeded biases to exercise the kernels' bias path.  For
+    bf16 the same cases of K2-K4 with x and the weights rounded to bf16 (the
+    biases stay f32), as a bf16 net hands them over.  ``odd`` adds K3 and K4
+    at odd shapes."""
+    cases = _kernel_cases_f32(pipe, dev, b, hw, odd)
     if dtype == torch.float32:
         return cases
     bf16 = []
@@ -343,16 +397,14 @@ def kernel_cases(pipe, dev, dtype=torch.float32):
     return bf16
 
 
-def _kernel_cases_f32(pipe, dev):
+def _kernel_cases_f32(pipe, dev, b: int, hw: tuple, odd: bool):
     from singlehdr_tpu_torch.ops import color
     from singlehdr_tpu_torch.ops.curves import monotonic_rf
     from singlehdr_tpu_torch.ops.cuda.enc_pool_cuda import encoder_stage2_plain
     from singlehdr_tpu_torch.ops.cuda.unet_stage_cuda import unet_stage2_plain
 
     g = torch.Generator(device=dev).manual_seed(SEED)
-    hw = SERVE_HW + 64
-    b = KERNEL_BATCH
-    img = torch.rand(b, 3, hw, hw, generator=g, device=dev)
+    img = torch.rand(b, 3, *hw, generator=g, device=dev)
     cases = []
 
     x = img * 1.4 - 0.2  # includes inputs outside [0, 1]
@@ -364,7 +416,7 @@ def _kernel_cases_f32(pipe, dev):
 
     for net, cin in (("deq", 3), ("ref", 9)):
         unet = getattr(pipe, net).unet
-        h = torch.rand(b, cin, hw, hw, generator=g, device=dev)
+        h = torch.rand(b, cin, *hw, generator=g, device=dev)
         stages = [(unet.stem1, unet.stem2, "stem")]
         stages += [(getattr(unet, n).conv1, getattr(unet, n).conv2, n) for n in ("down2", "down3")]
         for c1, c2, label in stages:
@@ -387,6 +439,8 @@ def _kernel_cases_f32(pipe, dev):
         cases.append(("encoder_stage2", f"hal.{name} {tuple(h.shape)}", args))
         h, _ = encoder_stage2_plain(*args)
         h = h.contiguous()
+    if not odd:
+        return cases
     enc = pipe.hal.enc2
     odd = torch.rand(*ODD_K4_SHAPE, generator=g, device=dev) * 50
     cases.append(("encoder_stage2", f"hal.enc2 odd {ODD_K4_SHAPE}",
@@ -562,17 +616,57 @@ def k3_library_error(feats, k7, b7, want: torch.Tensor) -> float:
     return rel
 
 
-def check_kernels(pipe, dev) -> dict:
-    """Phase 3, both dtypes: the report is keyed by kernel name, with ``_bf16``
-    after the bf16 kernels' names."""
+def plain_versions() -> dict:
+    """{kernel name: (wrapper, plain version)} of K1-K4."""
     from singlehdr_tpu_torch.ops.cuda import apply_rf_cuda, enc_pool_cuda, lin_stem_cuda, unet_stage_cuda
 
-    plain = {
+    return {
         "apply_rf": (apply_rf_cuda.apply_rf, apply_rf_cuda.apply_rf_plain),
         "unet_stage2": (unet_stage_cuda.unet_stage2, unet_stage_cuda.unet_stage2_plain),
         "lin_feature_stem": (lin_stem_cuda.lin_feature_stem, lin_stem_cuda.lin_feature_stem_plain),
         "encoder_stage2": (enc_pool_cuda.encoder_stage2, enc_pool_cuda.encoder_stage2_plain),
     }
+
+
+def compare_kernel(name: str, label: str, kernel, ref, args, dtype) -> tuple:
+    """One case of a kernel against its plain version: K1 bit-equal, f32
+    K2-K4 within KERNEL_REL_TOL of max|plain|, bf16 within
+    KERNEL_BF16_REL_TOL with KERNEL_BF16_MIN_EQUAL of the outputs bit-equal;
+    raises otherwise.  Returns (the plain outputs, max|err|, max|err| /
+    max|plain|, the share of outputs bit-equal)."""
+    got, want = kernel(*args), ref(*args)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, w in zip(got, want):
+        if a.shape != w.shape or a.dtype != w.dtype:
+            raise AssertionError(f"{name} {label}: {tuple(a.shape)} {a.dtype} != "
+                                 f"{tuple(w.shape)} {w.dtype}")
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{name} {label}: non-finite output")
+        if not w.abs().max() > 0:
+            raise AssertionError(f"{name} {label}: all-zero reference, nothing compared")
+    abs_err = max((a.float() - w.float()).abs().max().item() for a, w in zip(got, want))
+    rel_err = max(((a.float() - w.float()).abs().max() / w.float().abs().max()).item()
+                  for a, w in zip(got, want))
+    equal = min((a == w).float().mean().item() for a, w in zip(got, want))
+    if name == "apply_rf":
+        if not all(torch.equal(a, w) for a, w in zip(got, want)):
+            raise AssertionError(f"apply_rf {label}: not bit-equal (max err {abs_err})")
+    elif dtype == torch.bfloat16:
+        if not (rel_err <= KERNEL_BF16_REL_TOL and equal >= KERNEL_BF16_MIN_EQUAL):
+            raise AssertionError(f"{name} bf16 {label}: rel err {rel_err:.3e} (bound "
+                                 f"{KERNEL_BF16_REL_TOL:.3e}), {equal:.2%} equal (bound "
+                                 f"{KERNEL_BF16_MIN_EQUAL:.0%})")
+    elif not rel_err <= KERNEL_REL_TOL:
+        raise AssertionError(f"{name} {label}: rel err {rel_err:.3e} > {KERNEL_REL_TOL}")
+    return want, abs_err, rel_err, equal
+
+
+def check_kernels(pipe, dev) -> dict:
+    """Phase 3, both dtypes: the report is keyed by kernel name, with ``_bf16``
+    after the bf16 kernels' names."""
+    plain = plain_versions()
     report, main_path = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         suffix = "_bf16" if dtype == torch.bfloat16 else ""
@@ -583,32 +677,7 @@ def check_kernels(pipe, dev) -> dict:
         with torch.inference_mode():
             for name, label, args in cases:
                 kernel, ref = plain[name]
-                got, want = kernel(*args), ref(*args)
-                torch.cuda.synchronize()
-                got = got if isinstance(got, tuple) else (got,)
-                want = want if isinstance(want, tuple) else (want,)
-                for a, w in zip(got, want):
-                    if a.shape != w.shape or a.dtype != w.dtype:
-                        raise AssertionError(f"{name} {label}: {tuple(a.shape)} {a.dtype} != "
-                                             f"{tuple(w.shape)} {w.dtype}")
-                    if not torch.isfinite(a).all():
-                        raise AssertionError(f"{name} {label}: non-finite output")
-                    if not w.abs().max() > 0:
-                        raise AssertionError(f"{name} {label}: all-zero reference, nothing compared")
-                abs_err = max((a.float() - w.float()).abs().max().item() for a, w in zip(got, want))
-                rel_err = max(((a.float() - w.float()).abs().max() / w.float().abs().max()).item()
-                              for a, w in zip(got, want))
-                equal = min((a == w).float().mean().item() for a, w in zip(got, want))
-                if name == "apply_rf":
-                    if not all(torch.equal(a, w) for a, w in zip(got, want)):
-                        raise AssertionError(f"apply_rf {label}: not bit-equal (max err {abs_err})")
-                elif dtype == torch.bfloat16:
-                    if not (rel_err <= KERNEL_BF16_REL_TOL and equal >= KERNEL_BF16_MIN_EQUAL):
-                        raise AssertionError(f"{name} bf16 {label}: rel err {rel_err:.3e} (bound "
-                                             f"{KERNEL_BF16_REL_TOL:.3e}), {equal:.2%} equal (bound "
-                                             f"{KERNEL_BF16_MIN_EQUAL:.0%})")
-                elif not rel_err <= KERNEL_REL_TOL:
-                    raise AssertionError(f"{name} {label}: rel err {rel_err:.3e} > {KERNEL_REL_TOL}")
+                want, abs_err, rel_err, equal = compare_kernel(name, label, kernel, ref, args, dtype)
                 ms, plain_ms = device_ms(lambda: kernel(*args)), device_ms(lambda: ref(*args), 5)
                 library = ""
                 if name == "apply_rf":  # grid_sample, timed on a grid built beforehand
@@ -1022,16 +1091,16 @@ def _add_counts(total: dict, by_dtype: dict) -> None:
             total[name][dtype] += n
 
 
-def joint_training(card: str) -> dict:
+def joint_training(card: str, root: str) -> dict:
     """Phase 9: the joint configuration through cli.joint_train.run, then a
     resume, then one cli.train --lin step, then the joint configuration with
-    ``--dtype bfloat16``.  Returns the summed launch counts by kernel and
-    dtype."""
+    ``--dtype bfloat16``, under ``root`` (phase 12 reads its .hdr files,
+    ``root/hdr``, and its f32 joint checkpoint, ``root/checkpoints/jnt``).
+    Returns the summed launch counts by kernel and dtype."""
     from singlehdr_tpu_torch.cli import joint_train, train
     from singlehdr_tpu_torch.ops import cuda as kernels
     from singlehdr_tpu_torch.train.checkpoint import CheckpointManager
 
-    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
     cwd = os.getcwd()
     total = {name: {} for name in kernels.KERNELS}
     try:
@@ -1103,7 +1172,6 @@ def joint_training(card: str) -> dict:
               f"{kernels.launch_counts_by_dtype()}  [{card}]", flush=True)
     finally:
         os.chdir(cwd)
-        shutil.rmtree(root, ignore_errors=True)
     return total
 
 
@@ -1324,6 +1392,456 @@ def train_timings(dev, card: str, bwd_report: dict, dtype=torch.float32) -> floa
     return total
 
 
+def radiance_map(rs, h: int, w: int) -> np.ndarray:
+    """A seeded radiance map: a smooth field of 32 px cells (cubic), mean
+    near 1, with 20 % fine texture."""
+    import cv2
+
+    coarse = (rs.rand(h // 32 + 1, w // 32 + 1, 3).astype(np.float32) * 2) ** 2
+    hdr = np.clip(cv2.resize(coarse, (w, h), interpolation=cv2.INTER_CUBIC), 0.01, None)
+    return hdr * (1 + 0.2 * rs.rand(h, w, 3).astype(np.float32))
+
+
+def camera_ldr(hdr: np.ndarray) -> np.ndarray:
+    """The 8-bit LDR of a radiance map: exposed to twice its mean, a gamma
+    1/2.2 curve, levels 12..242 (no patch is over- or under-exposed)."""
+    x = np.clip(hdr / (2.0 * hdr.mean()), 0.0, 1.0) ** (1 / 2.2)
+    return np.round(12 + 230 * x).astype(np.uint8)
+
+
+def write_real_pairs(root: str, n: int = REAL_PAIRS) -> None:
+    """A paired HDR-Real stand-in: ``HDR_gt/*.hdr`` and their ``LDR_in/*.jpg``
+    (``camera_ldr``, JPEG quality 95), REAL_HW each, written with cv2."""
+    import cv2
+
+    rs = np.random.RandomState(SEED + 20)
+    for sub in ("HDR_gt", "LDR_in"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for i in range(n):
+        hdr = radiance_map(rs, *REAL_HW)
+        ok = cv2.imwrite(os.path.join(root, "HDR_gt", f"real{i:02d}.hdr"),
+                         np.ascontiguousarray(hdr[:, :, ::-1]))
+        ok &= cv2.imwrite(os.path.join(root, "LDR_in", f"real{i:02d}.jpg"),
+                          np.ascontiguousarray(camera_ldr(hdr)[:, :, ::-1]),
+                          [cv2.IMWRITE_JPEG_QUALITY, 95])
+        if not ok:
+            raise RuntimeError(f"failed to write pair {i} under {root}")
+
+
+def write_photos(root: str, n: int = N_PHOTOS) -> list:
+    """``n`` seeded PHOTO_HW JPEGs (``camera_ldr`` of ``radiance_map``)."""
+    import cv2
+
+    rs = np.random.RandomState(SEED + 21)
+    os.makedirs(root, exist_ok=True)
+    paths = []
+    for i in range(n):
+        paths.append(os.path.join(root, f"photo{i:02d}.jpg"))
+        ldr = camera_ldr(radiance_map(rs, *PHOTO_HW))
+        if not cv2.imwrite(paths[-1], np.ascontiguousarray(ldr[:, :, ::-1]),
+                           [cv2.IMWRITE_JPEG_QUALITY, 95]):
+            raise RuntimeError(f"failed to write {paths[-1]}")
+    return paths
+
+
+def tile_interior(hw: tuple, tile: int, halo: int) -> np.ndarray:
+    """[h, w] bool: the pixels one tile alone covers, out of its feather (at
+    least ``halo`` from every edge of it): where a tiled output is that one
+    tile's, far from any seam."""
+    from singlehdr_tpu_torch.tiled import tile_origins
+
+    cover = np.zeros(hw, np.int32)
+    inner = np.zeros(hw, np.int32)
+    for y in tile_origins(hw[0], tile, tile - 2 * halo):
+        for x in tile_origins(hw[1], tile, tile - 2 * halo):
+            cover[y:y + tile, x:x + tile] += 1
+            inner[y + halo:y + tile - halo, x + halo:x + tile - halo] += 1
+    return (cover == 1) & (inner == 1)
+
+
+def check_counts(label: str, counts: dict, want: dict) -> None:
+    """Launch counts of a path (every dtype) against the expected counts."""
+    print(f"  {label}: launches {counts}", flush=True)
+    bad = {n: (counts[n], w) for n, w in want.items() if counts[n] != w}
+    if bad:
+        raise AssertionError(f"{label}: launches (counted, expected) {bad}")
+
+
+def timed_s(fn) -> float:
+    """Host seconds of one call of ``fn``, to a synchronised device."""
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def other_threads_cpu_s() -> float:
+    """CPU seconds used so far by this process's threads other than the
+    calling one, ended threads included (the process's CPU clock less the
+    calling thread's)."""
+    return time.process_time() - time.thread_time()
+
+
+def cpu_s_by_thread_name() -> dict:
+    """{name: CPU seconds so far} over this process's live threads, by the
+    names the kernel knows them by (/proc/self/task/*/stat: Python's threads
+    share the process's name; PyTorch names its autograd threads)."""
+    out = {}
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{tid}/stat") as f:
+                stat = f.read()
+        except OSError:  # the thread ended
+            continue
+        name, fields = stat[stat.index("(") + 1:stat.rindex(")")], stat[stat.rindex(")") + 1:].split()
+        out[name] = out.get(name, 0.0) + (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+    return out
+
+
+def step_times(fn, rounds: int = STEP_ROUNDS, steps: int = STEP_CALLS) -> dict:
+    """``fn`` (a train step) timed in ``rounds`` rounds of ``steps`` calls,
+    each call from and to a synchronised device (one warm-up call first).
+    Per call: the host wall to the synchronised device, the host's enqueue
+    time (until ``fn`` returns) and the CUDA-event time around it; per round:
+    its median wall and, a call, the calling thread's CPU time and the other
+    threads'; over the rounds, the CPU time of the busiest threads by name,
+    and the live Python threads.  An enqueue as long as the wall says the
+    host sets the step's pace; the calling thread's and the other threads'
+    CPU together against the enqueue say whether the host computed or
+    waited, and which threads did the work."""
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    named0, rows, per_round = cpu_s_by_thread_name(), [], []
+    for _ in range(rounds):
+        walls, own0, other0 = [], time.thread_time(), other_threads_cpu_s()
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            start.record()
+            fn()
+            stop.record()
+            enqueue = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            rows.append((walls[-1] * 1e3, enqueue * 1e3, start.elapsed_time(stop)))
+        per_round.append((float(np.median(walls)) * 1e3, (time.thread_time() - own0) / steps * 1e3,
+                          (other_threads_cpu_s() - other0) / steps * 1e3))
+    named = {k: v - named0.get(k, 0.0) for k, v in cpu_s_by_thread_name().items()}
+    wall, enqueue, event = (float(np.median(col)) for col in zip(*rows))
+    return {"wall_ms": wall, "enqueue_ms": enqueue, "event_ms": event, "rounds": per_round,
+            "busiest_threads_s": sorted(named.items(), key=lambda kv: -kv[1])[:4],
+            "python_threads": len(threading.enumerate())}
+
+
+def real_kernel_cases(pipe, dev) -> dict:
+    """K1-K4 against their plain versions at the HDR-Real path's shapes, f32
+    and bf16 (K1 f32 only): [4, *, 256, 256] (finetune, evaluate) and the
+    whole 1024x1536 photo after its 32 px pad, [1, *, 1088, 1600]; each timed
+    with its plain version and its bound.  Returns {kernel(_bf16): [cases]}."""
+    plain = plain_versions()
+    shapes = ((REAL_BATCH, (TRAIN_HW, TRAIN_HW)), (1, (PHOTO_HW[0] + 64, PHOTO_HW[1] + 64)))
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        suffix = "_bf16" if dtype == torch.bfloat16 else ""
+        for b, hw in shapes:
+            with torch.no_grad():
+                cases = kernel_cases(pipe, dev, dtype, b=b, hw=hw, odd=False)
+            with torch.inference_mode():
+                for name, label, args in cases:
+                    kernel, ref = plain[name]
+                    want, abs_err, rel_err, equal = compare_kernel(name, label, kernel, ref, args, dtype)
+                    ms, plain_ms = device_ms(lambda: kernel(*args)), device_ms(lambda: ref(*args), 5)
+                    bound_ms, bound_by, _ = bound(kernel_flop(name, args), nbytes(args) + nbytes(want),
+                                                  dtype)
+                    out.setdefault(name + suffix, []).append({
+                        "case": label, "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by})
+                    print(f"  {name + suffix:22s} {label:36s} rel {rel_err:.3e} equal {equal:.2%} "
+                          f"kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  bound {bound_ms:.4f} ms "
+                          f"({bound_by})  share {bound_ms / ms:.1%}", flush=True)
+            del cases
+        torch.cuda.empty_cache()
+    return out
+
+
+def k1_bwd_term_sums(x: torch.Tensor, k: int, g: torch.Tensor) -> tuple:
+    """K1-bwd's curve gradient as float64 sums of its own f32 terms, and each
+    bin's mass: [b, k] float64 each.  A pixel adds (1 - frac) g to bin i0 and
+    frac g to bin i1, both products rounded to f32 as the kernel and its
+    plain version round them (y = (k - 1) x, i0 = clip(floor y), i1 =
+    clip(floor y + 1)); the mass is the sum of those terms' magnitudes.  A
+    kernel that forms the same terms differs from these sums by its order of
+    summation alone, a small fraction of each bin's mass."""
+    y = x * (k - 1)
+    y0 = torch.floor(y)
+    frac = y - y0
+    i0 = y0.to(torch.int64).clamp(0, k - 1)
+    i1 = (y0.to(torch.int64) + 1).clamp(0, k - 1)
+    w0, w1 = ((1 - frac) * g).double(), (frac * g).double()
+    zero = torch.zeros(x.shape[0], k, dtype=torch.float64, device=x.device)
+    sums = zero.clone().scatter_add_(1, i0, w0).scatter_add_(1, i1, w1)
+    mass = zero.scatter_add_(1, i0, w0.abs()).scatter_add_(1, i1, w1.abs())
+    return sums, mass
+
+
+def bin_rel_error(grf: torch.Tensor, sums: torch.Tensor, mass: torch.Tensor) -> float:
+    """The largest error of a curve gradient over its bins, each bin's error
+    over that bin's own mass (``k1_bwd_term_sums``), so that a lost, doubled
+    or misplaced term shows in a small bin beside a saturated one; a bin that
+    no term reaches must be exactly 0."""
+    err = (grf.double() - sums).abs()
+    reached = mass > 0
+    scaled = torch.where(reached, err / torch.where(reached, mass, 1.0),
+                         torch.where(err > 0, float("inf"), 0.0))
+    return scaled.max().item()
+
+
+def real_k1_bwd_cases(state, batch) -> list:
+    """K1-bwd against its plain version on a finetune step's inputs: x =
+    C_pred (deq's clipped output) and lin's curve, as the finetune backward
+    calls it (gx and grf), and x = the batch's 8-bit LDR itself (levels j /
+    255, many lanes of a warp in one bin); g seeded.  gx bit-equal, grf the
+    same bits on two launches and, bin by bin, within max(BWD_REL_TOL, twice
+    the f32 plain version's own error) of its bin's mass
+    (``bin_rel_error``); timed warm and L2-flushed beside the bound (12
+    bytes a pixel)."""
+    from singlehdr_tpu_torch.ops.cuda.apply_rf_cuda import apply_rf_bwd, apply_rf_bwd_plain
+
+    ldr, _ = batch
+    b = ldr.shape[0]
+    with torch.no_grad():
+        c_pred = torch.clamp(state.nets["deq"](ldr), 0.0, 1.0)
+        rf = state.nets["lin"](c_pred).contiguous()
+    g = torch.randn(ldr.shape, generator=torch.Generator(device=ldr.device).manual_seed(SEED + 22),
+                    device=ldr.device).reshape(b, -1)
+    out = []
+    for label, x in (("finetune C_pred", c_pred), ("8-bit LDR", ldr)):
+        x = x.reshape(b, -1).contiguous()
+        gx, grf = apply_rf_bwd(x, rf, g, True, True)
+        _, grf_again = apply_rf_bwd(x, rf, g, True, True)
+        pgx, pgrf = apply_rf_bwd_plain(x, rf, g, True, True)
+        sums, mass = k1_bwd_term_sums(x, rf.shape[1], g)
+        torch.cuda.synchronize()
+        if not torch.equal(gx, pgx):
+            raise AssertionError(f"apply_rf_bwd {label}: gx not bit-equal "
+                                 f"(max err {(gx - pgx).abs().max().item():.3e})")
+        if not torch.equal(grf, grf_again):
+            raise AssertionError(f"apply_rf_bwd {label}: grf differs between launches")
+        abs_err = (grf - sums).abs().max().item()
+        # each bin against its own mass: orders of summation differ by a small
+        # fraction of a bin's mass however many terms it sums (the pixels deq
+        # clips to 1.0 all land in bin 1023), while one lost or misplaced term
+        # errs by a large fraction of a small bin's mass
+        rel_err, plain_rel = bin_rel_error(grf, sums, mass), bin_rel_error(pgrf, sums, mass)
+        tol = max(BWD_REL_TOL, 2 * plain_rel)
+        if not rel_err <= tol:
+            raise AssertionError(f"apply_rf_bwd {label}: grf per-bin rel err {rel_err:.3e} > {tol:.3e}")
+        ms = device_ms(lambda: apply_rf_bwd(x, rf, g, True, True))
+        cold_ms = cold_l2_ms(lambda: apply_rf_bwd(x, rf, g, True, True))
+        plain_ms = device_ms(lambda: apply_rf_bwd_plain(x, rf, g, True, True), 5)
+        bound_ms = bound(0.0, nbytes((x, rf, g, pgx, pgrf)))[0]
+        levels = torch.unique(x).numel()
+        out.append({"case": f"{label} {tuple(x.shape)}", "max_abs_err": abs_err, "ms": ms,
+                    "cold_ms": cold_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": "bytes"})
+        print(f"  apply_rf_bwd {label} {tuple(x.shape)} ({levels} distinct x): gx bit-equal; grf "
+              f"per bin {rel_err:.3e} of its mass from the float64 sums (bound {tol:.3e}; f32 plain "
+              f"{plain_rel:.3e}; {int((mass > 0).sum())} bins reached), "
+              f"the same bits twice; kernel {ms:.4f} ms, L2 "
+              f"flushed {cold_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms (bytes), "
+              f"share {bound_ms / ms:.1%} (flushed {bound_ms / cold_ms:.1%})", flush=True)
+    return out
+
+
+def hdr_real_path(dev, card: str, work: str, train_root: str) -> tuple:
+    """Phase 12: the HDR-Real path through its entry points: convert_records,
+    finetune (f32, then bf16; deq/lin/hal from phase 9's joint checkpoint),
+    infer whole and tiled on two 1024x1536 photos, evaluate, validate_synth
+    on phase 9's .hdr files and joint checkpoint; each path's launches
+    counted alone; card vs CPU checks; K1-K4 and K1-bwd at the path's shapes.
+    Returns ({path: {kernel: {dtype: launches}}}, {path: units}, {kernel:
+    cases at the path's shapes}, {kernel: {dtype: launches}} of one invCRF
+    view, counted alone)."""
+    from singlehdr_tpu_torch.cli import DTYPES, convert_records, evaluate, finetune, infer, validate_synth
+    from singlehdr_tpu_torch.data.hdr_io import read_hdr, read_ldr
+    from singlehdr_tpu_torch.data.real import HdrRealPipeline
+    from singlehdr_tpu_torch.data.records import RecordDataset
+    from singlehdr_tpu_torch.inference import HdrPredictor
+    from singlehdr_tpu_torch.models import ReverseCameraPipeline
+    from singlehdr_tpu_torch.ops import cuda as kernels
+    from singlehdr_tpu_torch.tiled import TiledPredictor, tile_origins
+    from singlehdr_tpu_torch.train.checkpoint import CheckpointManager
+    from singlehdr_tpu_torch.train.loop import upload_pair
+    from singlehdr_tpu_torch.train.steps import make_finetune_train_step
+
+    root = os.path.join(work, "real")
+    write_real_pairs(root)
+    jnt = os.path.join(train_root, "checkpoints", "jnt")
+    launches, units, cwd = {}, {}, os.getcwd()
+
+    def counted(path: str, fn):
+        kernels.reset_launches()
+        result = fn()
+        torch.cuda.synchronize()
+        launches[path] = kernels.launch_counts_by_dtype()
+        return result, kernels.launch_counts()
+
+    t0 = time.perf_counter()
+    records = os.path.join(root, "records")
+    n = convert_records.run(convert_records.build_parser().parse_args(["--dir", root, "--out", records]))
+    ds = RecordDataset(records)
+    hdr0, ldr0 = ds[len(ds) - 1]
+    if not (n == len(ds) == REAL_RECORDS and hdr0.shape == ldr0.shape == (TRAIN_HW, TRAIN_HW, 3)
+            and ldr0.dtype == np.uint8 and np.isfinite(hdr0).all()):
+        raise AssertionError(f"records: {n} written, {len(ds)} read, {hdr0.shape} {ldr0.dtype}")
+    print(f"  convert_records: {n} records of {TRAIN_HW}^2 from {REAL_PAIRS} pairs of {REAL_HW} in "
+          f"{time.perf_counter() - t0:.1f} s; read back", flush=True)
+
+    ckpt, states = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        run_dir = os.path.join(root, f"finetune_{dtype}")
+        os.makedirs(run_dir)
+        ckpt[dtype] = os.path.join(run_dir, "ref")
+        os.chdir(run_dir)  # the CLI writes its run directories under the cwd
+        t0 = time.perf_counter()
+        try:
+            states[dtype], counts = counted(f"finetune_{dtype}", lambda: finetune.run(
+                finetune.build_parser().parse_args(
+                    ["--records", records, "--epochs", "1", "--batch_size", str(REAL_BATCH),
+                     "--dtype", dtype, "--deq_ckpt", jnt, "--lin_ckpt", jnt, "--hal_ckpt", jnt,
+                     "--ref_ckpt", ckpt[dtype]])))
+        finally:
+            os.chdir(cwd)
+        wall = time.perf_counter() - t0
+        losses = logged_losses(run_dir, "ref/loss")
+        saved = CheckpointManager(ckpt[dtype]).steps()
+        if states[dtype].step != REAL_STEPS or saved != [REAL_STEPS] or len(losses) != 1 \
+                or not np.isfinite(losses).all():
+            raise AssertionError(f"finetune {dtype}: step {states[dtype].step}, checkpoints {saved}, "
+                                 f"losses {losses}")
+        check_counts(f"finetune {dtype}, {REAL_STEPS} steps", counts,
+                     {"apply_rf": REAL_STEPS, "apply_rf_bwd": REAL_STEPS, "unet_stage2": 0,
+                      "lin_feature_stem": 0, "encoder_stage2": 0})
+        # the step alone, on the first batch of a seeded epoch (it goes on
+        # training the CLI's state: the same work each step)
+        batch = upload_pair(*next(HdrRealPipeline(records, REAL_BATCH, seed=SEED).epoch()), dev)
+        step = make_finetune_train_step(DTYPES[dtype])
+        t = step_times(lambda: step(states[dtype], *batch))
+        back_to_back = cuda_ms(lambda: step(states[dtype], *batch))
+        rounds = "; ".join(f"{w:.2f} ms, CPU {own:.1f} + {other:.1f} ms" for w, own, other in t["rounds"])
+        busiest = ", ".join(f"{name} {sec:.3f} s" for name, sec in t["busiest_threads_s"])
+        print(f"  finetune {dtype}: epoch loss {losses[0]:.5f}, checkpoint at step {saved[0]}; "
+              f"CLI {wall:.1f} s wall incl. set-up ({wall / REAL_STEPS * 1e3:.1f} ms a step)\n"
+              f"    step b{REAL_BATCH} @ {TRAIN_HW}^2, each synchronised, median of "
+              f"{STEP_ROUNDS} x {STEP_CALLS}: wall {t['wall_ms']:.2f} ms "
+              f"({REAL_BATCH / t['wall_ms'] * 1e3:.2f} img/s), host enqueue {t['enqueue_ms']:.2f} ms, "
+              f"events {t['event_ms']:.2f} ms; back to back {back_to_back:.2f} ms (mean of 10)\n"
+              f"    rounds (median wall; CPU a call, this thread + the others): {rounds}\n"
+              f"    busiest threads over the rounds: {busiest}; {t['python_threads']} Python threads "
+              f"alive  [{card}]", flush=True)
+    units["finetune_step"] = 2 * REAL_STEPS
+    k1_bwd = real_k1_bwd_cases(states["float32"], batch)
+    del states
+
+    photos = write_photos(os.path.join(root, "photos"))
+    slots = [a for n in ("deq", "lin", "hal", "ref") for a in (f"--{n}_ckpt", ckpt["float32"])]
+    base = ["--dir", os.path.dirname(photos[0]), *slots]
+    tiles = len(tile_origins(PHOTO_HW[0], TILE, TILE - 2 * HALO)) * \
+        len(tile_origins(PHOTO_HW[1], TILE, TILE - 2 * HALO))
+    for mode, extra, want in (
+            ("infer_whole", [], {k: N_PHOTOS * v for k, v in PER_BATCH.items()}),
+            ("infer_tiled", ["--tiled", "--tile", str(TILE), "--halo", str(HALO)],
+             {k: N_PHOTOS * (PER_VIEW[k] + tiles * PER_TILE[k]) for k in PER_TILE})):
+        out_dir = os.path.join(root, mode)
+        t0 = time.perf_counter()
+        written, counts = counted(mode, lambda: infer.run(infer.build_parser().parse_args(
+            base + ["--output_path", out_dir] + extra)))
+        check_counts(f"{mode}, {N_PHOTOS} photos of {PHOTO_HW}" + (f", {tiles} tiles each" if extra else ""),
+                     counts, {**want, "apply_rf_bwd": 0})
+        for path in written:
+            hdr = read_hdr(path)
+            if hdr.shape != (*PHOTO_HW, 3) or not np.isfinite(hdr).all():
+                raise AssertionError(f"{mode}: {path} {hdr.shape}")
+        print(f"  {mode}: {len(written)} .hdr files {PHOTO_HW} finite, {time.perf_counter() - t0:.1f} s "
+              f"wall incl. set-up", flush=True)
+    units["infer_image"] = N_PHOTOS
+    units["tiled_tile"] = N_PHOTOS * tiles
+
+    args = infer.build_parser().parse_args(base)
+    pipe = infer.load_pipeline(args, dev)
+    img = read_ldr(photos[0]).astype(np.float32) / 255.0
+    whole_pred, tiled_pred = HdrPredictor(pipe), TiledPredictor(pipe, tile=TILE, halo=HALO)
+    # the tiled runs' launches less their invCRF views' give the per-tile
+    # counts: one view's launches, counted alone
+    kernels.reset_launches()
+    tiled_pred.global_invcrf(img)
+    torch.cuda.synchronize()
+    view_launches = kernels.launch_counts_by_dtype()
+    check_counts(f"one invCRF view of a {PHOTO_HW} photo", kernels.launch_counts(),
+                 {**PER_VIEW, "apply_rf_bwd": 0})
+    whole, tiled = whole_pred(img), tiled_pred(img)
+    inner = tile_interior(PHOTO_HW, TILE, HALO)
+    diff = np.abs(tiled - whole)[inner]
+    rel = float(diff.max() / np.abs(whole[inner]).max())
+    whole_ms = float(np.median([timed_s(lambda: whole_pred(img)) for _ in range(3)])) * 1e3
+    tiled_ms = float(np.median([timed_s(lambda: tiled_pred(img)) for _ in range(3)])) * 1e3
+    print(f"  tiled vs whole, {PHOTO_HW}, tile interiors ({inner.mean():.1%} of the pixels): max|err| "
+          f"{diff.max():.3e} mean {diff.mean():.3e}, rel {rel:.3e} of max|whole| (bound "
+          f"{TILED_WHOLE_REL_TOL}); whole {whole_ms:.1f} ms, tiled {tiled_ms:.1f} ms an image "
+          f"(host clock, H2D and D2H included)  [{card}]", flush=True)
+    if not rel <= TILED_WHOLE_REL_TOL:
+        raise AssertionError(f"tiled output differs from the whole image in tile interiors: {rel:.3e}")
+
+    cpu_pipe = ReverseCameraPipeline()
+    cpu_pipe.load_state_dict({k: v.cpu() for k, v in pipe.state_dict().items()})
+    cpu_pipe.eval()
+    hw, tile, halo, view = TILED_SMALL
+    small = np.ascontiguousarray(img[:hw[0], :hw[1]])
+    got = TiledPredictor(pipe, tile=tile, halo=halo, invcrf_view=view)(small)
+    want = TiledPredictor(cpu_pipe, tile=tile, halo=halo, invcrf_view=view)(small)
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    print(f"  tiled {hw}, tile {tile}, halo {halo}, view {view}: card vs CPU plain path rel {rel:.3e} "
+          f"(bound {PATH_REL_TOL})", flush=True)
+    if not (got.shape == (*hw, 3) and rel <= PATH_REL_TOL):
+        raise AssertionError(f"tiled path differs from the CPU plain path: rel {rel:.3e}")
+
+    out, counts = counted("evaluate", lambda: evaluate.run(evaluate.build_parser().parse_args(
+        ["--records", records, "--batch_size", str(REAL_BATCH), *slots])))
+    check_counts(f"evaluate, {EVAL_BATCHES} batches", counts,
+                 {**{k: EVAL_BATCHES * v for k, v in PER_BATCH.items()}, "apply_rf_bwd": 0})
+    if not all(np.isfinite(v) for v in out.values()):
+        raise AssertionError(f"evaluate: {out}")
+    units["evaluate_batch"] = EVAL_BATCHES
+    card_m = evaluate.evaluate(pipe, HdrRealPipeline(records, REAL_BATCH, training=False),
+                               REAL_BATCH, max_batches=2)
+    cpu_m = evaluate.evaluate(cpu_pipe, HdrRealPipeline(records, REAL_BATCH, training=False),
+                              REAL_BATCH, max_batches=2)
+    delta = {k: abs(card_m[k] - cpu_m[k]) for k in card_m}
+    batch = upload_pair(*next(HdrRealPipeline(records, REAL_BATCH, training=False).epoch()), dev)
+    eval_ms = cuda_ms(lambda: evaluate.batch_metrics(pipe, *batch, 1.0))
+    print(f"  evaluate {out}; first two batches card {card_m}, CPU {cpu_m}, |diff| {delta} (bounds "
+          f"{EVAL_DB_TOL} dB, SSIM {EVAL_SSIM_TOL}); a batch b{REAL_BATCH} @ {TRAIN_HW}^2 "
+          f"{eval_ms:.2f} ms (mean of 10)  [{card}]", flush=True)
+    if not (delta["psnr_linear_db"] <= EVAL_DB_TOL and delta["psnr_mu_db"] <= EVAL_DB_TOL
+            and delta["ssim_mu"] <= EVAL_SSIM_TOL):
+        raise AssertionError(f"evaluate differs from the CPU plain path: {delta}")
+    del cpu_pipe
+
+    out, counts = counted("validate_synth", lambda: validate_synth.run(
+        validate_synth.build_parser().parse_args(
+            ["--hdrdir", os.path.join(train_root, "hdr"), "--deq_ckpt", jnt, "--lin_ckpt", jnt,
+             "--size", "512", "--batches", str(VALIDATE_BATCHES)])))
+    check_counts(f"validate_synth, {VALIDATE_BATCHES} batches", counts,
+                 {**{k: VALIDATE_BATCHES * v for k, v in PER_VALIDATE_BATCH.items()}, "apply_rf_bwd": 0})
+    if not all(np.isfinite(v) for v in out.values()):
+        raise AssertionError(f"validate_synth: {out}")
+    print(f"  validate_synth: {out}", flush=True)
+
+    cases = real_kernel_cases(pipe, dev)
+    cases["apply_rf_bwd"] = k1_bwd
+    return launches, units, cases, view_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1388,8 +1906,20 @@ def main() -> int:
     report["apply_rf_bwd"] = check_k1_bwd(dev)
     report["apply_rf_bwd"]["dtype"] = "float32"
 
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return run_training_and_real_paths(dev, card, report, served, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run_training_and_real_paths(dev, card: str, report: dict, served: dict, work: str) -> int:
+    """Phases 9-12 and the last two lines, with phase 9's files and
+    checkpoints under ``work`` until phase 12 has read them."""
+    train_root = os.path.join(work, "train")
+    os.makedirs(train_root)
     phase("9 joint training through the entry point")
-    train_launches = joint_training(card)
+    train_launches = joint_training(card, train_root)
 
     phase("10 one-step parity, card vs CPU")
     step_parity(dev)
@@ -1402,9 +1932,15 @@ def main() -> int:
           f"  [{card}]", flush=True)
     torch.cuda.synchronize()
 
-    # launches: the serving paths' (phase 4, both dtypes) plus the training
-    # paths' (phase 9, both dtypes), of each (kernel, dtype); per serving batch
-    # of that dtype's pipeline and per training step
+    phase("12 HDR-Real path through the entry points")
+    real_launches, real_units, real_cases, view_launches = hdr_real_path(dev, card, work, train_root)
+    torch.cuda.synchronize()
+
+    # launches: the serving paths' (phase 4, both dtypes), the training
+    # paths' (phase 9, both dtypes) and the HDR-Real paths' (phase 12), of
+    # each (kernel, dtype); per serving batch of that dtype's pipeline, per
+    # training step, per finetune step (f32 and bf16 runs), evaluate batch,
+    # whole photo and tile (the tiled runs less their invCRF views)
     train_steps = TRAIN_STEPS + BF16_JOINT_STEPS
     kernels = []
     for name, r in report.items():
@@ -1415,17 +1951,25 @@ def main() -> int:
         batches = {str(d).removeprefix("torch."): stats["device_batches"]
                    for d, (stats, _) in served.items()}
         n_serve, n_train = sum(serve.values()), train_launches[base].get(dt, 0)
+        real = {path: counts[base].get(dt, 0) for path, counts in real_launches.items()}
+        views = N_PHOTOS * view_launches[base].get(dt, 0)
         entry = {
             "name": name, "dtype": dt, "route": "cuda", "source": SOURCES[base][0],
-            "replaces": SOURCES[base][1], "launches": n_serve + n_train,
-            "launches_by_path": {"serving": n_serve, "training": n_train},
+            "replaces": SOURCES[base][1], "launches": n_serve + n_train + sum(real.values()),
+            "launches_by_path": {"serving": n_serve, "training": n_train, **real},
             "launches_per_batch": {
                 **{f"serving_{d}": serve[d] / batches[d] for d in serve},
-                "training_step": n_train / train_steps},
+                "training_step": n_train / train_steps,
+                "finetune_step": (real["finetune_float32"] + real["finetune_bfloat16"])
+                / real_units["finetune_step"],
+                "evaluate_batch": real["evaluate"] / real_units["evaluate_batch"],
+                "infer_image": real["infer_whole"] / real_units["infer_image"],
+                "tiled_tile": (real["infer_tiled"] - views) / real_units["tiled_tile"]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": "operations" if r["ops_bound_ms"] >= r["bound_ms"] / 2 else "bytes",
-            "library_ms": r["library_ms"]}
+            "library_ms": r["library_ms"],
+            "hdr_real_cases": real_cases.get(name, [])}
         if base in KERNEL_LAUNCHES_PER_STAGE:
             entry["kernel_launches_per_stage"] = KERNEL_LAUNCHES_PER_STAGE[base]
         kernels.append(entry)

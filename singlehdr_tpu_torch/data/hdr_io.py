@@ -49,6 +49,18 @@ def write_hdr(path: str, rgb: np.ndarray) -> None:
         _write_rgbe(path, rgb)
 
 
+def read_ldr(path: str) -> np.ndarray:
+    """Read an 8-bit LDR image -> uint8 RGB [h,w,3]."""
+    if _HAS_CV2:
+        img = cv2.imread(path, cv2.IMREAD_COLOR)
+        if img is None:
+            raise IOError(f"failed to read LDR image: {path}")
+        return np.ascontiguousarray(img[:, :, ::-1])
+    from PIL import Image  # pragma: no cover
+
+    return np.asarray(Image.open(path).convert("RGB"))  # pragma: no cover
+
+
 # --------------------------------------------------------------------------
 # Pure-numpy RGBE codec (fallback path; also used by tests to cross-check cv2)
 # --------------------------------------------------------------------------

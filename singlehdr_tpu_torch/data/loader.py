@@ -80,7 +80,19 @@ class RandomSampleLoader:
         ]
 
     def close(self) -> None:
+        """Stop and join every thread.  Threads blocked on a full queue wake
+        only when an item leaves it, so the queues are drained until all
+        threads have seen the stop."""
         self._stop.set()
+        while any(t.is_alive() for t in self._threads):
+            for q in (self._out_q, self._idx_q):
+                try:
+                    while True:
+                        q.get_nowait()
+                except queue.Empty:
+                    pass
+            for t in self._threads:
+                t.join(timeout=0.01)
 
     def __enter__(self):
         return self

@@ -42,6 +42,7 @@ except Exception:  # pragma: no cover
 PATCH_FULL = 512
 PATCH_TRAIN = 256
 TRAIN_EXPOSURES = 600
+TEST_EXPOSURES = 7
 
 
 def _resize_area(img: np.ndarray, h: int, w: int) -> np.ndarray:
@@ -178,3 +179,29 @@ def get_train_dataset(hdr_prefix: str, patch_size: int = PATCH_TRAIN) -> Product
         ]
     )
 
+
+def get_validation_dataset(hdr_prefix: str, n: int = 10) -> ProductDataset:
+    """Held-out patches x held-out CRFs x a 5-step ladder (dataset.py:279-300)."""
+    bank = get_crf_bank()
+    paths = discover_hdr_files(hdr_prefix, "test")[:n]
+    return ProductDataset(
+        [
+            PatchHDRDataset(paths, training=False),
+            ZipDataset(
+                [ArrayDataset(bank.test_crf[:n]), ArrayDataset(bank.test_invcrf[:n])]
+            ),
+            ArrayDataset(get_exposure_ladder(5)),
+        ]
+    )
+
+
+def get_test_dataset(hdr_prefix: str) -> ProductDataset:
+    """Test patches x test CRFs x the 7-step test ladder (dataset.py:305-310)."""
+    bank = get_crf_bank()
+    return ProductDataset(
+        [
+            PatchHDRDataset(discover_hdr_files(hdr_prefix, "test"), training=False),
+            ZipDataset([ArrayDataset(bank.test_crf), ArrayDataset(bank.test_invcrf)]),
+            ArrayDataset(get_exposure_ladder(TEST_EXPOSURES)),
+        ]
+    )

@@ -1,17 +1,21 @@
-"""Profile the serving forward (or the joint train step) on the card: where a
-batch's time goes.
+"""Profile the serving forward (or a train step) on the card: where a batch's
+time goes.
 
   python3 -m singlehdr_tpu_torch.tools.serve_trace [--batch 8] [--steps 3] [--out DIR]
-      [--dtype {float32,bfloat16}] [--train]
+      [--dtype {float32,bfloat16}] [--train | --finetune]
 
 Builds the seeded pipeline on the card in the compute ``--dtype`` (f32 with
-TF32 off by default), warms ``predict_batch`` at the batch size and 512^2,
+TF32 off by default), warms ``predict_batch`` at the batch size and 512^2
+(``--size`` x ``--width``),
 then records ``--steps`` batches with ``torch.profiler`` (CPU and CUDA
 activities) and exports the chrome trace to ``DIR/serve_trace.json``.  With
 ``--train`` it records ``--steps`` joint train steps instead (deq + lin + hal
 in ``--dtype``, the f32 VGG loss, Adam; ``chip_smoke.joint_batch`` inputs at
 ``--batch`` x ``--size``^2, e.g. ``--batch 16 --size 256``) into
-``DIR/train_trace.json``.  From the exported trace it prints, per batch: the
+``DIR/train_trace.json``; with ``--finetune``, HDR-Real finetune steps (all
+four nets in ``--dtype``, Adam; seeded 8-bit LDR and HDR at ``--batch`` x
+``--size``^2, e.g. ``--batch 4 --size 256``) into
+``DIR/finetune_trace.json``.  From the exported trace it prints, per batch: the
 span (first to last event of the recorded window), the device's busy time
 (the union of kernel, memcpy and memset intervals), the idle share, and the
 busy time by kind of kernel, then the ten kernels that took the most time.
@@ -109,15 +113,36 @@ def _train_steps(cs, dev, dtype, batch: int, size: int):
     return lambda: step(state, *inputs)
 
 
+def _finetune_steps(cs, dev, dtype, batch: int, size: int):
+    """One HDR-Real finetune step as a callable: 8-bit LDR levels and a
+    radiance in [0, 2), seeded."""
+    from singlehdr_tpu_torch.train import steps
+    from singlehdr_tpu_torch.train.state import init_multi_state
+
+    state = init_multi_state(("deq", "lin", "hal", "ref"), 1e-5, seed=cs.SEED, device=dev,
+                             dtype=dtype)
+    step = steps.make_finetune_train_step(dtype)
+    g = torch.Generator().manual_seed(cs.SEED + 3)
+    ldr = (torch.rand(batch, 3, size, size, generator=g) * 255).round() / 255
+    hdr = 2 * torch.rand(batch, 3, size, size, generator=g)
+    ldr, hdr = ldr.to(dev), hdr.to(dev)
+    return lambda: step(state, ldr, hdr)
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--size", type=int, default=512)
+    p.add_argument("--width", type=int, default=None,
+                   help="serving image width (default --size: square images)")
     p.add_argument("--out", default="build/trace", help="directory of the exported trace")
     p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
                    help="the nets' compute dtype")
-    p.add_argument("--train", action="store_true", help="trace joint train steps instead")
+    mode = p.add_mutually_exclusive_group()
+    mode.add_argument("--train", action="store_true", help="trace joint train steps instead")
+    mode.add_argument("--finetune", action="store_true",
+                      help="trace HDR-Real finetune steps instead")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("serve_trace: no CUDA device", file=sys.stderr)
@@ -135,11 +160,14 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     if args.train:
         run = _train_steps(cs, dev, dtype, args.batch, args.size)
+    elif args.finetune:
+        run = _finetune_steps(cs, dev, dtype, args.batch, args.size)
     else:
         predictor = HdrPredictor(build_pipeline(seed=cs.SEED, device=dev, dtype=dtype))
-        predictor.warmup([(args.size, args.size)], batch_sizes=(args.batch,))
+        hw = (args.size, args.width or args.size)
+        predictor.warmup([hw], batch_sizes=(args.batch,))
         rs = np.random.RandomState(cs.SEED + 2)
-        imgs = [rs.rand(args.size, args.size, 3).astype(np.float32) for _ in range(args.batch)]
+        imgs = [rs.rand(*hw, 3).astype(np.float32) for _ in range(args.batch)]
 
         def run():
             predictor.predict_batch(imgs)
@@ -150,14 +178,17 @@ def main() -> int:
             run()
         torch.cuda.synchronize()
     os.makedirs(args.out, exist_ok=True)
-    path = os.path.join(args.out, "train_trace.json" if args.train else "serve_trace.json")
+    what, name = (("joint train step", "train_trace.json") if args.train else
+                  ("finetune step", "finetune_trace.json") if args.finetune else
+                  ("serving", "serve_trace.json"))
+    path = os.path.join(args.out, name)
     prof.export_chrome_trace(path)
     with open(path) as f:
         summary = summarize(json.load(f), args.steps)
-    summary.update(card=cs.card_line(), batch=args.batch, size=args.size, steps=args.steps,
-                   dtype=args.dtype, train=args.train)
-    what = "joint train step" if args.train else "serving"
-    print(f"{what} {args.dtype} b{args.batch} @ {args.size}^2, {args.steps} batches "
+    summary.update(card=cs.card_line(), batch=args.batch, size=args.size, width=args.width,
+                   steps=args.steps, dtype=args.dtype, train=args.train, finetune=args.finetune)
+    shape = f"{args.size}x{args.width}" if args.width else f"{args.size}^2"
+    print(f"{what} {args.dtype} b{args.batch} @ {shape}, {args.steps} batches "
           f"[{summary['card']}]: "
           f"span {summary['span_ms']:.2f} ms a batch, busy {summary['busy_ms']:.2f} ms, "
           f"idle share {100 * summary['idle_share']:.2f} %, "

@@ -17,6 +17,7 @@ import tempfile
 from typing import Mapping, Optional
 
 import torch
+import torch.nn as nn
 
 from singlehdr_tpu_torch.train.state import TrainState, make_optimizer
 
@@ -90,29 +91,36 @@ class CheckpointManager:
         pass
 
 
-def restore_pretrained_subnets(state: TrainState, directories: Mapping[str, str]) -> TrainState:
-    """Load each subnet's weights from the latest checkpoint of its own
-    directory, then start a fresh combined Adam over all the nets (the joint
-    and finetune drivers restore per-net pretraining and train with a new
-    optimizer).  A directory may hold a one-net checkpoint or a multi-net one
-    (a joint or finetune state) that contains the subnet by name; the saved
-    keys and shapes must be the subnet's.  Empty directories are skipped."""
+def load_pretrained_nets(nets: Mapping[str, nn.Module], directories: Mapping[str, str]) -> None:
+    """Load each net of ``nets`` in place from the latest checkpoint of its own
+    directory, onto the net's device.  A directory may hold a one-net
+    checkpoint or a multi-net one (a joint or finetune state) that contains
+    the net by name; the saved keys and shapes must be the net's.  Empty or
+    missing directories are skipped, leaving the net as it was."""
     for name, directory in directories.items():
-        if name not in state.nets:
-            raise KeyError(f"state has no subnet {name!r}")
+        if name not in nets:
+            raise KeyError(f"no subnet {name!r} among {sorted(nets)}")
         if not os.path.isdir(directory):
             continue
         mgr = CheckpointManager(directory)
         step = mgr.latest_step
         if step is None:
             continue
-        saved = mgr.load(step, state.device)["nets"]
+        net = nets[name]
+        saved = mgr.load(step, next(net.parameters()).device)["nets"]
         if name not in saved:
             raise ValueError(f"checkpoint {mgr.path(step)} holds nets {sorted(saved)}, not {name!r}")
-        want = {k: tuple(v.shape) for k, v in state.nets[name].state_dict().items()}
+        want = {k: tuple(v.shape) for k, v in net.state_dict().items()}
         got = {k: tuple(v.shape) for k, v in saved[name].items()}
         if want != got:
             raise ValueError(f"checkpoint {mgr.path(step)} does not match subnet {name!r}")
-        state.nets[name].load_state_dict(saved[name], strict=True)
+        net.load_state_dict(saved[name], strict=True)
+
+
+def restore_pretrained_subnets(state: TrainState, directories: Mapping[str, str]) -> TrainState:
+    """``load_pretrained_nets`` into the state's nets, then a fresh combined
+    Adam over all the nets (the joint and finetune drivers restore per-net
+    pretraining and train with a new optimizer)."""
+    load_pretrained_nets(state.nets, directories)
     state.optimizer = make_optimizer(state.nets.parameters(), state.learning_rate)
     return state

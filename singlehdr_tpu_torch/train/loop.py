@@ -1,6 +1,7 @@
-"""The HDR-Synth training loop (counterpart of ``run_synth_training`` in
-``singlehdr_tpu.train.loop``): data, degradation, steps, checkpoints and
-metrics for per-net pretraining and joint training.
+"""The training loops (counterparts of ``run_synth_training`` and
+``run_real_finetune`` in ``singlehdr_tpu.train.loop``): data, degradation,
+steps, checkpoints and metrics for per-net pretraining, joint training and
+the HDR-Real finetune.
 
 The host half of the feed is the port's copy of the JAX package's numpy code
 (the ``RandomSampleLoader`` over ``data.synth.get_train_dataset``, the
@@ -13,6 +14,7 @@ the next batch overlaps the current step.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import queue
 import threading
@@ -52,11 +54,11 @@ _TORCH_DTYPE = {np.dtype(np.float32): torch.float32, np.dtype(np.float16): torch
                 np.dtype(np.uint8): torch.uint8}
 
 
-def _nchw(x: torch.Tensor) -> torch.Tensor:
+def to_nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2).contiguous()
 
 
-def _upload(arrays, device: torch.device) -> list:
+def upload_packed(arrays, device: torch.device) -> list:
     """numpy arrays -> tensors on ``device`` through ONE copy of one packed
     byte buffer (pinned when the device is a GPU)."""
     raw = [np.ascontiguousarray(a).reshape(-1).view(np.uint8) for a in arrays]
@@ -69,6 +71,49 @@ def _upload(arrays, device: torch.device) -> list:
         out.append(buf[off:off + r.size].view(_TORCH_DTYPE[a.dtype]).reshape(a.shape))
         off += r.size
     return out
+
+
+def upload_pair(ldr: np.ndarray, hdr: np.ndarray, device: torch.device) -> tuple:
+    """An NHWC (ldr, hdr) host batch -> NCHW tensors on ``device``, through
+    one packed upload (``upload_packed``), split and made NCHW on the device."""
+    ldr, hdr = upload_packed([np.asarray(ldr, np.float32), np.asarray(hdr, np.float32)], device)
+    return to_nchw(ldr), to_nchw(hdr)
+
+
+class LaggedReadback:
+    """Device values read back ``lag`` pushes behind the newest: each pushed
+    tensor is copied into pinned host memory as it is pushed, and the host
+    waits only for the copy of the one ``lag`` behind (a CUDA event), so the
+    device queue stays ``lag`` steps deep without a sync on every step."""
+
+    def __init__(self, lag: int):
+        self._lag = lag
+        self._pending: collections.deque = collections.deque()
+        self._done: list = []
+
+    def push(self, value: torch.Tensor) -> None:
+        value = value.detach()
+        host = torch.empty(value.shape, dtype=value.dtype, pin_memory=value.is_cuda)
+        host.copy_(value, non_blocking=True)
+        event = None
+        if value.is_cuda:
+            event = torch.cuda.Event()
+            event.record()
+        self._pending.append((host, event))
+        while len(self._pending) > self._lag:
+            self._finish()
+
+    def _finish(self) -> None:
+        host, event = self._pending.popleft()
+        if event is not None:
+            event.synchronize()
+        self._done.append(host.numpy())
+
+    def drain(self) -> list:
+        """Every value pushed, as numpy arrays in push order."""
+        while self._pending:
+            self._finish()
+        return self._done
 
 
 class SynthBatchPipeline:
@@ -88,16 +133,17 @@ class SynthBatchPipeline:
     def next_batch(self) -> dict:
         hdr, crf, invcrf, t = self._loader.read_batch()
         # float32 fields first: every field then starts at a multiple of its size
-        crf, invcrf, t, hdr = _upload(
+        crf, invcrf, t, hdr = upload_packed(
             [np.asarray(crf, np.float32), np.asarray(invcrf, np.float32),
              np.asarray(t, np.float32), np.asarray(hdr, np.float16)], self._device)
-        hdr = _nchw(hdr).float()
+        hdr = to_nchw(hdr).float()
         with self._lock:
             sim = simulate_capture(self._generator, hdr, crf, t)
         levels = sim.quantized_u8
         if self._cfg.use_jpeg:
             host = sim.quantized_u8.permute(0, 2, 3, 1).contiguous().cpu().numpy()
-            levels = _nchw(_upload([jpeg_roundtrip_batch(host, self._qualities)], self._device)[0])
+            coded = jpeg_roundtrip_batch(host, self._qualities)
+            levels = to_nchw(upload_packed([coded], self._device)[0])
         return {
             "ldr": sim.ldr,
             "jpeg": levels.float() / 255.0,
@@ -209,6 +255,54 @@ def run_synth_training(*, module_name: str, state: TrainState, step_fn: Callable
     finally:
         prefetcher.close()
         pipeline.close()
+        mgr.wait()
+        mgr.close()
+        if owned_writer:
+            writer.close()
+        else:
+            writer.flush()
+
+
+def run_real_finetune(*, state: TrainState, step_fn: Callable, pipeline, epochs: int,
+                      ckpt_dir: str, log_dir: str,
+                      writer: Optional[MetricsWriter] = None) -> TrainState:
+    """HDR-Real finetune loop (finetune_real_dataset.py:190-225 shape): resume
+    from the latest checkpoint in ``ckpt_dir``, then ``epochs`` passes over
+    ``pipeline.epoch()`` (an ``HdrRealPipeline``; the short tail batch is
+    trained, as the reference batches without drop_remainder), a checkpoint,
+    the epoch's mean loss and time, the stage images and the output's
+    histogram after each.  Each batch goes to the state's device in one
+    packed upload; step losses are read back a few steps behind the newest
+    (``LaggedReadback``), not synced on every step."""
+    owned_writer = writer is None
+    writer = writer or MetricsWriter(log_dir)
+    mgr = CheckpointManager(ckpt_dir)
+    state = mgr.restore(state)
+    tracker = Mean("loss_ref")
+    try:
+        for epoch in range(1, epochs + 1):
+            t0 = time.perf_counter()
+            tracker.reset()
+            aux = {}
+            losses = LaggedReadback(lag=4)
+            for ldr, hdr in pipeline.epoch():
+                _, aux = step_fn(state, *upload_pair(ldr, hdr, state.device))
+                losses.push(aux["loss_ref"])
+            for v in losses.drain():
+                tracker.update(v)
+            epoch_time = time.perf_counter() - t0
+            writer.scalar("ref/loss", tracker.result(), epoch)
+            writer.scalar("ref/epoch_time_s", epoch_time, epoch)
+            print(f"[ref] epoch {epoch}  loss {tracker.result():.5f}  ({epoch_time:.1f}s)",
+                  flush=True)
+            for tag in ("c_pred", "b_pred", "a_pred", "out"):
+                if tag in aux:
+                    writer.image(f"ref/{tag}", aux[tag], epoch)
+            if "out" in aux:
+                writer.histogram("ref/out_histogram", aux["out"], epoch)
+            mgr.save(state)
+        return state
+    finally:
         mgr.wait()
         mgr.close()
         if owned_writer:

@@ -71,11 +71,19 @@ def init_multi_state(names: Iterable[str], learning_rate: float, seed: int = 0,
     """Keras-initialised nets (in sorted name order, from one seeded CPU
     generator) computing in ``dtype``, in train mode on ``device``, under one
     Adam; f32 with TF32 off (``precision.use_full_f32``)."""
+    nets = init_nets(names, seed, device, dtype).train()
+    return TrainState(nets, make_optimizer(nets.parameters(), learning_rate))
+
+
+def init_nets(names: Iterable[str], seed: int = 0, device="cuda",
+              dtype: torch.dtype = torch.float32) -> nn.ModuleDict:
+    """The nets of ``init_multi_state`` without an optimizer: Keras-initialised
+    in sorted name order from one seeded CPU generator, on ``device``; f32
+    with TF32 off (``precision.use_full_f32``)."""
     use_full_f32()
     generator = torch.Generator().manual_seed(seed)
     nets = nn.ModuleDict({n: keras_init_(NETS[n](dtype), generator) for n in sorted(names)})
-    nets.to(device).train()
-    return TrainState(nets, make_optimizer(nets.parameters(), learning_rate))
+    return nets.to(device)
 
 
 def init_net_state(name: str, learning_rate: float, seed: int = 0, device="cuda",

@@ -5,6 +5,7 @@ byte-equal files, the same file lists and the same batches."""
 import argparse
 import filecmp
 import os
+import time
 
 import numpy as np
 import pytest
@@ -85,6 +86,20 @@ def test_random_sample_loader_same_batches():
             for x, y in zip(got, want):
                 np.testing.assert_array_equal(x, y)
 
+
+
+@pytest.mark.parametrize("read", [0, 2])
+def test_random_sample_loader_close_joins_its_threads(read):
+    """``close`` ends the shuffler and every worker, also when they sit
+    blocked on full queues (nothing read, or the reader gone after a few
+    batches), so a training run leaves no threads behind."""
+    data = np.arange(1000 * 3, dtype=np.float32).reshape(1000, 3)
+    with loader.RandomSampleLoader(ArrayDataset(data), 4, n_workers=3, seed=1) as a:
+        for _ in range(read):
+            a.read_batch()
+        threads = list(a._threads)
+        time.sleep(0.2)  # the queues fill and the threads block on them
+    assert not any(t.is_alive() for t in threads)
 
 def test_jpeg_roundtrip_equal():
     rs = np.random.RandomState(3)

@@ -308,12 +308,18 @@ def test_port_imports_no_jax():
         "import singlehdr_tpu_torch.data.hdr_io, singlehdr_tpu_torch.data.datasets\n"
         "import singlehdr_tpu_torch.data.synth, singlehdr_tpu_torch.data.jpeg\n"
         "import singlehdr_tpu_torch.data.native_jpeg, singlehdr_tpu_torch.data.loader\n"
+        "import singlehdr_tpu_torch.data.records, singlehdr_tpu_torch.data.tfrecord\n"
+        "import singlehdr_tpu_torch.data.real, singlehdr_tpu_torch.tiled\n"
+        "import singlehdr_tpu_torch.cli.convert_records, singlehdr_tpu_torch.cli.finetune\n"
+        "import singlehdr_tpu_torch.cli.infer, singlehdr_tpu_torch.cli.evaluate\n"
+        "import singlehdr_tpu_torch.cli.validate_synth\n"
         "singlehdr_tpu_torch.calib.get_crf_bank()\n"
         "singlehdr_tpu_torch.data.native_jpeg.available()\n"
         "import tempfile\n"
         "import chip_smoke\n"
         "with tempfile.TemporaryDirectory() as d:\n"
         "    chip_smoke.write_hdr_files(d, 1)\n"
+        "    chip_smoke.write_real_pairs(d, 1)\n"
         "bad = [m for m in ('jax', 'flax', 'optax') if m in sys.modules]\n"
         "bad += [m for m in sys.modules if m == 'singlehdr_tpu' or m.startswith('singlehdr_tpu.')]\n"
         "assert not bad, bad\n"
@@ -367,6 +373,49 @@ def test_chip_smoke_k1_bwd_library_route_is_k1_bwd(b, n, seed):
     grf_rel, gx_rel, kinks = cs.k1_bwd_library_error(x, rf, g, gx, grf)
     assert grf_rel <= 1e-5 and gx_rel <= 1e-6
     assert kinks < x.numel() // 2  # most pixels are compared
+
+
+@pytest.mark.parametrize("fault", [None, "lost", "misplaced", "doubled"])
+@pytest.mark.parametrize("inputs", ["clipped", "8-bit"])
+def test_chip_smoke_k1_bwd_bin_check_flags_a_term_in_a_small_bin(inputs, fault):
+    """Phase 12's K1-bwd check (``bin_rel_error`` against
+    ``k1_bwd_term_sums``): the f32 plain version's curve gradient is within
+    BWD_REL_TOL of each bin's mass, and one term lost, moved to the next bin
+    or added twice, in the least-filled bin below the top, breaks that bound
+    beside a bin 1023 that holds a fifth of the pixels (as on a finetune
+    C_pred) or with 8-bit input."""
+    from singlehdr_tpu_torch.ops.cuda.apply_rf_cuda import apply_rf_bwd_plain
+
+    cs = _chip_smoke()
+    rs = np.random.RandomState(7)
+    b, n, k = 2, 3 * 64 * 64, 1024
+    x = rs.rand(b, n).astype(np.float32)
+    if inputs == "clipped":
+        x[:, : n // 5] = 1.0
+    else:
+        x = np.round(x * 255).astype(np.float32) / 255
+    x = torch.from_numpy(x)
+    rf = torch.from_numpy(np.cumsum(rs.rand(b, k), 1).astype(np.float32))
+    rf = rf / rf[:, -1:]
+    g = torch.from_numpy(rs.randn(b, n).astype(np.float32))
+    _, grf = apply_rf_bwd_plain(x, rf, g, False, True)
+    sums, mass = cs.k1_bwd_term_sums(x, k, g)
+    if fault is None:
+        assert cs.bin_rel_error(grf, sums, mass) <= cs.BWD_REL_TOL
+        return
+    i0 = torch.floor(x[0] * (k - 1)).long()
+    counts = torch.bincount(i0, minlength=k).double()
+    counts[counts == 0] = np.inf
+    counts[k - 1] = np.inf
+    k0 = int(counts.argmin())
+    members = (i0 == k0).nonzero()[:, 0]
+    w0 = (1 - (x[0, members] * (k - 1) - k0)) * g[0, members]
+    w = w0[w0.abs().argmax()]
+    bad = grf.clone()
+    bad[0, k0] += {"lost": -w, "misplaced": -w, "doubled": w}[fault]
+    if fault == "misplaced":
+        bad[0, k0 + 1] += w
+    assert cs.bin_rel_error(bad, sums, mass) > max(cs.BWD_REL_TOL, 2 * cs.bin_rel_error(grf, sums, mass))
 
 
 @pytest.mark.parametrize("hw", [(37, 53), (40, 56)])
