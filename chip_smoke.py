@@ -1,11 +1,13 @@
 """GPU smoke run of the PyTorch port: builds the five CUDA kernels (K2-K4 in
 f32 and bf16), holds each against its plain PyTorch version at the serving,
 training and HDR-Real shapes, serves a few requests through the port's HTTP
-server, trains the joint configuration through the ``joint_train`` CLI and
+server, trains the joint configuration through the ``joint_train`` CLI,
 runs the HDR-Real path (record conversion, finetune, whole and tiled
-inference, evaluation, HDR-Synth validation) through its CLIs, all at the
-full published widths, in f32 and in the JAX package's bf16 compute dtype,
-and checks each path against the CPU plain path.
+inference, evaluation, HDR-Synth validation) through its CLIs, carries the
+trained checkpoints through the reference TF2 format and back, and trains
+with rematerialised forwards, all at the full published widths, in f32 and
+in the JAX package's bf16 compute dtype, and checks each path against the
+CPU plain path or the plain step.
 
   python3 chip_smoke.py          (from the root of a checkout, one CUDA card)
 
@@ -79,6 +81,26 @@ Phases (each prints its own lines; any failure exits non-zero):
              finetune step in rounds of synchronised calls (wall, host
              enqueue, the thread's CPU, other threads' CPU); batch and image
              times
+  13 interop cli.export_weights on phase 9's joint checkpoint (deq, lin,
+             hal) and phase 12's f32 finetune (ref): the .npz and one
+             reference TF2 bundle a net, each bundle read back bit-equal;
+             cli.import_reference of the bundles, rgb (equal to the export)
+             and bgr; cli.infer on phase 12's two photos from the slots and
+             from the imported .npz (the same .hdr bytes; K1 x1, K2 x6, K3
+             x1, K4 x2 an image), the two pipelines within 1e-6 of max|ref|,
+             the bgr import on the channel-flipped photo against the flipped
+             rgb output within 1e-4, the serve CLI's slot loading on one
+             512^2 request within 1e-6 of infer's
+  14 remat   a finetune step at batch 4 (phase 12's records) and a joint
+             step at batch 16, 256^2, f32 and bf16, with remat False, True
+             and 'convs' from one snapshot: with cuDNN's deterministic
+             algorithms, loss and new BN statistics within 1e-6 of the plain
+             step's and every gradient within phase 10's bound of it (the
+             bit-equal tensors counted); as run by default, peak memory
+             (True below the plain step, 'convs' not above) and step time
+             in synchronised rounds; K1 and K1-bwd once a step and K2-K4
+             never; cli.finetune --remat (one epoch, bf16) and
+             cli.joint_train --remat (2 steps)
 The second-to-last line is the kernels' JSON record, one entry a (kernel,
 dtype): K2-K4's bf16 kernels as ``unet_stage2_bf16``, ``lin_feature_stem_bf16``
 and ``encoder_stage2_bf16`` (with each kernel's launches by path and per
@@ -104,6 +126,9 @@ Peaks: NVIDIA's H100 SXM data sheet.
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import filecmp
 import json
 import os
 import shutil
@@ -202,6 +227,21 @@ PER_VALIDATE_BATCH = {"apply_rf": 2, "unet_stage2": 3, "lin_feature_stem": 1, "e
 TILED_SMALL = ((256, 320), 128, 32, 64)
 EVAL_DB_TOL = 1e-3      # evaluate's PSNRs, card vs CPU plain path, first two batches
 EVAL_SSIM_TOL = 1e-4
+# phase 13, interop: the same weights through the checkpoint slots and
+# through export -> import give the same numbers from the same kernels
+INTEROP_REL_TOL = 1e-6
+# the bgr import on a channel-flipped photo against the flipped rgb output:
+# exact in real numbers, the kernels sum the permuted channels in another order
+INTEROP_BGR_REL_TOL = PATH_REL_TOL
+SERVE_REQUEST_HW = 512
+INTEROP_IMAGES = 2 * N_PHOTOS + 6  # two infer runs; four photo and two request forwards
+# phase 14, remat: one step of each (step, dtype, mode) from one snapshot;
+# loss and new BatchNorm statistics against the plain step's, gradients
+# within phase 10's bound of the plain step's
+REMAT_MODES = (False, True, "convs")
+REMAT_REL_TOL = 1e-6
+REMAT_ROUNDS, REMAT_CALLS = 2, 3
+REMAT_CLI_ITERATIONS = 2
 HBM_BYTES_PER_S = 3.35e12
 SLEEP_CYCLES_PER_S = 2.0e9  # device_ms's lead: at least the SM clock (1.98 GHz at most)
 F32_TENSOR_FLOPS = 495e12 / 3   # 3xTF32
@@ -1661,7 +1701,8 @@ def hdr_real_path(dev, card: str, work: str, train_root: str) -> tuple:
     counted alone; card vs CPU checks; K1-K4 and K1-bwd at the path's shapes.
     Returns ({path: {kernel: {dtype: launches}}}, {path: units}, {kernel:
     cases at the path's shapes}, {kernel: {dtype: launches}} of one invCRF
-    view, counted alone)."""
+    view, counted alone, {"records", "photos", "finetune_ckpt": paths}, which
+    phases 13 and 14 read)."""
     from singlehdr_tpu_torch.cli import DTYPES, convert_records, evaluate, finetune, infer, validate_synth
     from singlehdr_tpu_torch.data.hdr_io import read_hdr, read_ldr
     from singlehdr_tpu_torch.data.real import HdrRealPipeline
@@ -1839,7 +1880,293 @@ def hdr_real_path(dev, card: str, work: str, train_root: str) -> tuple:
 
     cases = real_kernel_cases(pipe, dev)
     cases["apply_rf_bwd"] = k1_bwd
-    return launches, units, cases, view_launches
+    files = {"records": records, "photos": os.path.dirname(photos[0]), "finetune_ckpt": ckpt["float32"]}
+    return launches, units, cases, view_launches, files
+
+
+def interop_path(dev, card: str, work: str, train_root: str, files: dict) -> dict:
+    """Phase 13: the four slots phases 9 and 12 trained (deq, lin and hal
+    from the joint checkpoint, ref from the f32 finetune) through
+    cli.export_weights (the .npz and one reference TF2 bundle a net), the
+    bundles back through cli.import_reference (rgb and bgr), and cli.infer on
+    phase 12's photos from the slots and from the imported .npz; the serve
+    CLI's slot loading on one request.  Returns the phase's launches, {kernel:
+    {dtype: n}}."""
+    from singlehdr_tpu_torch.cli import export_weights, import_reference, infer
+    from singlehdr_tpu_torch.cli import serve as cli_serve
+    from singlehdr_tpu_torch.convert import flat_variables
+    from singlehdr_tpu_torch.data.hdr_io import read_ldr
+    from singlehdr_tpu_torch.inference import HdrPredictor
+    from singlehdr_tpu_torch.ops import cuda as kernels
+    from singlehdr_tpu_torch.train.tensorbundle import read_bundle
+    from singlehdr_tpu_torch.train.weight_import import reference_keys_to_tree
+
+    root = os.path.join(work, "interop")
+    jnt = os.path.join(train_root, "checkpoints", "jnt")
+    slots = ["--deq_ckpt", jnt, "--lin_ckpt", jnt, "--hal_ckpt", jnt, "--ref_ckpt", files["finetune_ckpt"]]
+    nets = ("deq", "lin", "hal", "ref")
+    os.makedirs(root)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    exported_npz = os.path.join(root, "exported.npz")
+    exported = export_weights.run(export_weights.build_parser().parse_args(
+        ["--out", exported_npz, "--reference_out", os.path.join(root, "tf"), *slots]))
+    bundles = {net: os.path.join(root, "tf", net, "ckpt-1") for net in nets}
+    for net, prefix in bundles.items():
+        back = flat_variables(reference_keys_to_tree(net, read_bundle(prefix)))
+        want = flat_variables({"params": exported["params"][net],
+                               "batch_stats": exported["batch_stats"].get(net, {})})
+        want.pop("batch_stats/preproc_mean", None)  # no reference checkpoint holds it
+        if set(back) != set(want) or not all(
+                back[k].dtype == want[k].dtype and np.array_equal(back[k], want[k]) for k in want):
+            raise AssertionError(f"{prefix}: the bundle does not read back to the exported {net} arrays")
+    imported = {}
+    for order in ("rgb", "bgr"):
+        imported[order] = os.path.join(root, f"imported_{order}.npz")
+        import_reference.run(import_reference.build_parser().parse_args(
+            ["--out", imported[order], "--channel_order", order,
+             *[a for net in nets for a in (f"--{net}", bundles[net])]]))
+    with np.load(exported_npz) as a, np.load(imported["rgb"]) as b:
+        if set(a.files) != set(b.files) or not all(np.array_equal(a[k], b[k]) for k in a.files):
+            raise AssertionError("export -> import does not give back the exported arrays")
+    print(f"  export_weights -> {len(bundles)} reference bundles -> import_reference (rgb, bgr): "
+          f"{len(exported['params'])} nets, every bundle read back bit-equal, the rgb import equal "
+          f"to the export, {time.perf_counter() - t0:.1f} s (host)", flush=True)
+
+    written = {}
+    for label, extra in (("slots", slots), ("weights", ["--weights", imported["rgb"]])):
+        before = kernels.launch_counts()
+        written[label] = infer.run(infer.build_parser().parse_args(
+            ["--dir", files["photos"], "--output_path", os.path.join(root, f"infer_{label}"), *extra]))
+        torch.cuda.synchronize()
+        counts = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+        check_counts(f"infer from the {label}, {N_PHOTOS} photos", counts,
+                     {**{k: N_PHOTOS * v for k, v in PER_BATCH.items()}, "apply_rf_bwd": 0})
+    same = [filecmp.cmp(a, b, shallow=False) for a, b in zip(written["slots"], written["weights"])]
+    if len(same) != N_PHOTOS or not all(same):
+        raise AssertionError(f"infer's .hdr files differ between the slots and the imported npz: {same}")
+
+    def pipeline(*argv):
+        return infer.load_pipeline(infer.build_parser().parse_args(list(argv)), dev)
+
+    pipes = {"slots": pipeline(*slots), "weights": pipeline("--weights", imported["rgb"]),
+             "bgr": pipeline("--weights", imported["bgr"])}
+    img = read_ldr(os.path.join(files["photos"], sorted(os.listdir(files["photos"]))[0])).astype(np.float32) / 255.0
+    want = HdrPredictor(pipes["slots"])(img)
+    got = HdrPredictor(pipes["weights"])(img)
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    flipped = HdrPredictor(pipes["weights"])(np.ascontiguousarray(img[..., ::-1]))[..., ::-1]
+    bgr = HdrPredictor(pipes["bgr"])(img)
+    rel_bgr = float(np.abs(bgr - flipped).max() / np.abs(flipped).max())
+    request = np.ascontiguousarray(img[:SERVE_REQUEST_HW, :SERVE_REQUEST_HW])
+    served = cli_serve.make_predictor(cli_serve.build_parser().parse_args(["--warmup", "", *slots]))
+    want_req = HdrPredictor(pipes["slots"])(request)
+    rel_serve = float(np.abs(served(request) - want_req).max() / np.abs(want_req).max())
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    print(f"  {PHOTO_HW} photo, f32: imported npz vs the slots max|err| / max|ref| {rel:.3e} (bound "
+          f"{INTEROP_REL_TOL}); bgr import on the flipped photo vs the flipped rgb output {rel_bgr:.3e} "
+          f"(bound {INTEROP_BGR_REL_TOL}); serve CLI's slots vs infer's on a {SERVE_REQUEST_HW}^2 "
+          f"request {rel_serve:.3e} (bound {INTEROP_REL_TOL}); the two infer runs' .hdr files "
+          f"byte-identical  [{card}]", flush=True)
+    check_counts(f"interop, {INTEROP_IMAGES} images", counts,
+                 {**{k: INTEROP_IMAGES * v for k, v in PER_BATCH.items()}, "apply_rf_bwd": 0})
+    if not (rel <= INTEROP_REL_TOL and rel_serve <= INTEROP_REL_TOL):
+        raise AssertionError(f"imported or served weights give other numbers: {rel:.3e}, {rel_serve:.3e}")
+    if not rel_bgr <= INTEROP_BGR_REL_TOL:
+        raise AssertionError(f"the bgr import is not the channel-flipped rgb pipeline: {rel_bgr:.3e}")
+    del pipes, served
+    torch.cuda.empty_cache()
+    return kernels.launch_counts_by_dtype()
+
+
+def _snapshot(state) -> tuple:
+    return ({k: v.clone() for k, v in state.nets.state_dict().items()},
+            copy.deepcopy(state.optimizer.state_dict()), state.step)
+
+
+def _restore(state, snap: tuple) -> None:
+    state.nets.load_state_dict(snap[0])
+    state.optimizer.load_state_dict(snap[1])
+    state.step = snap[2]
+    for p in state.nets.parameters():
+        p.grad = None
+
+
+def _rel_max(got: dict, want: dict) -> float:
+    return max(float((got[k] - w).abs().max() / w.abs().max()) for k, w in want.items())
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN restricted to its deterministic algorithms within the block."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def remat_steps(dev, card: str, files: dict) -> tuple:
+    """Phase 14, the steps: a finetune step at batch 4 (phase 12's first
+    record batch) and a joint step at batch 16 (seeded), 256^2, in f32 and
+    bf16, each from one snapshot of a warmed state with remat False, True
+    and 'convs'.  One step of each mode with cuDNN's deterministic
+    algorithms: the loss, the new BatchNorm statistics and every gradient
+    against the plain step's (with cuDNN free to choose, the f32 backward
+    differs from run to run, and a remat step can get other algorithms
+    than the plain one, which moves bf16 gradients by an ulp); one step of
+    each as it runs by default: its peak memory; then each mode's step time
+    in synchronised rounds; K1 and K1-bwd once a step.  Returns the
+    launches {kernel: {dtype: n}} and the number of steps."""
+    from singlehdr_tpu_torch.data.real import HdrRealPipeline
+    from singlehdr_tpu_torch.models.vgg16 import Vgg16Features
+    from singlehdr_tpu_torch.ops import cuda as kernels
+    from singlehdr_tpu_torch.train import steps
+    from singlehdr_tpu_torch.train.loop import upload_pair
+    from singlehdr_tpu_torch.train.state import init_multi_state
+
+    vgg = Vgg16Features().to(dev)
+    batches = {"finetune": upload_pair(*next(HdrRealPipeline(files["records"], REAL_BATCH, seed=SEED).epoch()),
+                                       dev),
+               "joint": joint_batch(dev, TRAIN_BATCH, TRAIN_HW, SEED + 4)}
+    factories = {"finetune": lambda dtype, remat: steps.make_finetune_train_step(dtype, remat=remat),
+                 "joint": lambda dtype, remat: steps.make_joint_train_step(vgg, dtype, remat=remat)}
+    nets = {"finetune": ("deq", "lin", "hal", "ref"), "joint": ("deq", "lin", "hal")}
+    total, n_steps = {}, 0
+    one_step = {"apply_rf": 1, "apply_rf_bwd": 1, "unet_stage2": 0, "lin_feature_stem": 0,
+                "encoder_stage2": 0}
+    for name, batch in batches.items():
+        b = batch[0].shape[0]
+        for dtype in (torch.float32, torch.bfloat16):
+            label = f"{name} b{b} @ {TRAIN_HW}^2 {str(dtype).removeprefix('torch.')}"
+            state = init_multi_state(nets[name], 1e-5, seed=SEED, device=dev, dtype=dtype)
+            kernels.reset_launches()
+            factories[name](dtype, False)(state, *batch)  # Adam's state, cuDNN's choices
+            snap = _snapshot(state)
+            got = {}
+            for remat in REMAT_MODES:
+                step = factories[name](dtype, remat)
+                _restore(state, snap)
+                before = kernels.launch_counts()
+                with cudnn_deterministic():
+                    loss, _ = step(state, *batch)
+                torch.cuda.synchronize()
+                check_counts(f"{label} remat={remat!r}, one step",
+                             {k: v - before[k] for k, v in kernels.launch_counts().items()}, one_step)
+                got[remat] = {"loss": loss.item(),
+                              "grads": {n: p.grad.double().cpu() for n, p in state.nets.named_parameters()},
+                              "stats": {n: v.double().cpu() for n, v in state.nets.named_buffers()
+                                        if n.endswith(("running_mean", "running_var"))}}
+                _restore(state, snap)
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                step(state, *batch)
+                torch.cuda.synchronize()
+                got[remat]["peak"] = torch.cuda.max_memory_allocated(dev)
+                got[remat]["over"] = got[remat]["peak"] - base
+            plain = got[False]
+            net_max = {}
+            for n, g in plain["grads"].items():
+                net_max[n.split(".")[0]] = max(net_max.get(n.split(".")[0], 0.0), g.abs().max().item())
+            times = {}
+            for remat in REMAT_MODES:
+                _restore(state, snap)
+                step = factories[name](dtype, remat)
+                times[remat] = step_times(lambda: step(state, *batch), REMAT_ROUNDS, REMAT_CALLS)
+            counts = kernels.launch_counts()
+            steps_here = 1 + len(REMAT_MODES) * (3 + REMAT_ROUNDS * REMAT_CALLS)
+            n_steps += steps_here
+            check_counts(f"{label}, {steps_here} steps", counts,
+                         {k: v * steps_here for k, v in one_step.items()})
+            _add_counts(total, kernels.launch_counts_by_dtype())
+            failures = []
+            for remat in REMAT_MODES:
+                r, t = got[remat], times[remat]
+                loss_rel = abs(r["loss"] - plain["loss"]) / abs(plain["loss"])
+                stats_rel = _rel_max(r["stats"], plain["stats"])
+                ratio = max((r["grads"][n] - g).abs().max().item()
+                            / (STEP_GRAD_OWN_TOL * g.abs().max().item()
+                               + STEP_GRAD_NET_TOL * net_max[n.split(".")[0]])
+                            for n, g in plain["grads"].items())
+                equal = sum(torch.equal(r["grads"][n], g) for n, g in plain["grads"].items())
+                print(f"  {label} remat={remat!r}: peak {r['peak'] / 2**30:.2f} GiB ({r['over'] / 2**30:.2f} "
+                      f"over the state), step {t['wall_ms']:.2f} ms wall (median of {REMAT_ROUNDS} x "
+                      f"{REMAT_CALLS}, synchronised; events {t['event_ms']:.2f}, host enqueue "
+                      f"{t['enqueue_ms']:.2f}); vs plain: loss rel {loss_rel:.3e}, BN statistics rel "
+                      f"{stats_rel:.3e} (bound {REMAT_REL_TOL}), worst gradient {ratio:.3f} of phase 10's "
+                      f"bound, {equal}/{len(plain['grads'])} gradient tensors bit-equal  [{card}]", flush=True)
+                if not (loss_rel <= REMAT_REL_TOL and stats_rel <= REMAT_REL_TOL and ratio <= 1):
+                    failures.append(f"remat={remat!r}: loss {loss_rel:.3e}, stats {stats_rel:.3e}, "
+                                    f"gradients {ratio:.3f} of the bound")
+            if not got[True]["peak"] < plain["peak"]:
+                failures.append(f"remat=True peaks at {got[True]['peak']}, not below {plain['peak']}")
+            if not got["convs"]["peak"] <= plain["peak"]:
+                failures.append(f"remat='convs' peaks at {got['convs']['peak']}, above {plain['peak']}")
+            if failures:
+                raise AssertionError(f"{label}: " + "; ".join(failures))
+            del state, snap, got
+            torch.cuda.empty_cache()
+    return total, n_steps
+
+
+def remat_clis(card: str, work: str, train_root: str, files: dict) -> dict:
+    """Phase 14, the entry points: cli.finetune --remat for one epoch on
+    phase 12's records (bf16, from phase 9's joint checkpoint) and
+    cli.joint_train --remat for REMAT_CLI_ITERATIONS steps on phase 9's .hdr
+    files.  Returns their launches, {kernel: {dtype: n}}."""
+    from singlehdr_tpu_torch.cli import finetune, joint_train
+    from singlehdr_tpu_torch.ops import cuda as kernels
+    from singlehdr_tpu_torch.train.checkpoint import CheckpointManager
+
+    root, cwd = os.path.join(work, "remat"), os.getcwd()
+    jnt = os.path.join(train_root, "checkpoints", "jnt")
+    total = {}
+    os.makedirs(root)
+    os.chdir(root)  # the CLIs write their run directories under the cwd
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        state = finetune.run(finetune.build_parser().parse_args(
+            ["--records", files["records"], "--epochs", "1", "--batch_size", str(REAL_BATCH),
+             "--dtype", "bfloat16", "--remat", "--deq_ckpt", jnt, "--lin_ckpt", jnt, "--hal_ckpt", jnt,
+             "--ref_ckpt", os.path.join(root, "ref")]))
+        torch.cuda.synchronize()
+        losses = logged_losses(root, "ref/loss")
+        if state.step != REAL_STEPS or len(losses) != 1 or not np.isfinite(losses).all():
+            raise AssertionError(f"finetune --remat: step {state.step}, losses {losses}")
+        check_counts(f"finetune --remat --dtype bfloat16, {REAL_STEPS} steps", kernels.launch_counts(),
+                     {"apply_rf": REAL_STEPS, "apply_rf_bwd": REAL_STEPS, "unet_stage2": 0,
+                      "lin_feature_stem": 0, "encoder_stage2": 0})
+        _add_counts(total, kernels.launch_counts_by_dtype())
+        print(f"  finetune --remat --dtype bfloat16: one epoch, loss {losses[0]:.5f}, "
+              f"{time.perf_counter() - t0:.1f} s wall incl. set-up  [{card}]", flush=True)
+
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        ck = os.path.join(train_root, "checkpoints")
+        state = joint_train.run(joint_train.build_parser().parse_args(
+            ["--dir", os.path.join(train_root, "hdr"), "--batch_size", str(TRAIN_BATCH), "--patch_size",
+             str(TRAIN_HW), "--workers", "8", "--log_every", "1", "--remat",
+             "--iterations", str(REMAT_CLI_ITERATIONS), "--deq_ckpt", os.path.join(ck, "deq"),
+             "--lin_ckpt", os.path.join(ck, "lin"), "--hal_ckpt", os.path.join(ck, "hal"),
+             "--jnt_ckpt", os.path.join(root, "jnt")]))
+        torch.cuda.synchronize()
+        losses = logged_losses(root, "jnt/loss")
+        if state.step != REMAT_CLI_ITERATIONS or len(losses) != REMAT_CLI_ITERATIONS \
+                or not np.isfinite(losses).all():
+            raise AssertionError(f"joint_train --remat: step {state.step}, losses {losses}")
+        if CheckpointManager(os.path.join(root, "jnt")).latest_step != REMAT_CLI_ITERATIONS:
+            raise AssertionError("joint_train --remat saved no final checkpoint")
+        check_train_launches(kernels.launch_counts(), REMAT_CLI_ITERATIONS, "joint_train --remat")
+        _add_counts(total, kernels.launch_counts_by_dtype())
+        print(f"  joint_train --remat: {REMAT_CLI_ITERATIONS} steps, losses "
+              f"{[round(v, 4) for v in losses]}, {time.perf_counter() - t0:.1f} s wall incl. set-up  "
+              f"[{card}]", flush=True)
+    finally:
+        os.chdir(cwd)
+    return total
 
 
 def main() -> int:
@@ -1914,8 +2241,9 @@ def main() -> int:
 
 
 def run_training_and_real_paths(dev, card: str, report: dict, served: dict, work: str) -> int:
-    """Phases 9-12 and the last two lines, with phase 9's files and
-    checkpoints under ``work`` until phase 12 has read them."""
+    """Phases 9-14 and the last two lines, with phase 9's and phase 12's
+    files and checkpoints under ``work`` until phases 13 and 14 have read
+    them."""
     train_root = os.path.join(work, "train")
     os.makedirs(train_root)
     phase("9 joint training through the entry point")
@@ -1933,14 +2261,28 @@ def run_training_and_real_paths(dev, card: str, report: dict, served: dict, work
     torch.cuda.synchronize()
 
     phase("12 HDR-Real path through the entry points")
-    real_launches, real_units, real_cases, view_launches = hdr_real_path(dev, card, work, train_root)
+    real_launches, real_units, real_cases, view_launches, files = hdr_real_path(dev, card, work, train_root)
     torch.cuda.synchronize()
 
+    phase("13 checkpoint interop through the entry points")
+    t0 = time.perf_counter()
+    interop_launches = interop_path(dev, card, work, train_root, files)
+    print(f"  phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("14 remat: steps and entry points")
+    t0 = time.perf_counter()
+    remat_launches, remat_n = remat_steps(dev, card, files)
+    remat_step_launches = {k: dict(v) for k, v in remat_launches.items()}
+    _add_counts(remat_launches, remat_clis(card, work, train_root, files))
+    print(f"  phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # launches: the serving paths' (phase 4, both dtypes), the training
-    # paths' (phase 9, both dtypes) and the HDR-Real paths' (phase 12), of
-    # each (kernel, dtype); per serving batch of that dtype's pipeline, per
-    # training step, per finetune step (f32 and bf16 runs), evaluate batch,
-    # whole photo and tile (the tiled runs less their invCRF views)
+    # paths' (phase 9, both dtypes), the HDR-Real paths' (phase 12), the
+    # interop path's (phase 13) and the remat path's (phase 14, its steps and
+    # CLIs), of each (kernel, dtype); per serving batch of that dtype's
+    # pipeline, per training step, per finetune step (f32 and bf16 runs),
+    # evaluate batch, whole photo and tile (the tiled runs less their invCRF
+    # views), and per phase 14 step (its CLIs not included)
     train_steps = TRAIN_STEPS + BF16_JOINT_STEPS
     kernels = []
     for name, r in report.items():
@@ -1953,10 +2295,14 @@ def run_training_and_real_paths(dev, card: str, report: dict, served: dict, work
         n_serve, n_train = sum(serve.values()), train_launches[base].get(dt, 0)
         real = {path: counts[base].get(dt, 0) for path, counts in real_launches.items()}
         views = N_PHOTOS * view_launches[base].get(dt, 0)
+        n_interop = interop_launches[base].get(dt, 0)
+        n_remat = remat_launches.get(base, {}).get(dt, 0)
         entry = {
             "name": name, "dtype": dt, "route": "cuda", "source": SOURCES[base][0],
-            "replaces": SOURCES[base][1], "launches": n_serve + n_train + sum(real.values()),
-            "launches_by_path": {"serving": n_serve, "training": n_train, **real},
+            "replaces": SOURCES[base][1],
+            "launches": n_serve + n_train + sum(real.values()) + n_interop + n_remat,
+            "launches_by_path": {"serving": n_serve, "training": n_train, **real, "interop": n_interop,
+                                 "remat": n_remat},
             "launches_per_batch": {
                 **{f"serving_{d}": serve[d] / batches[d] for d in serve},
                 "training_step": n_train / train_steps,
@@ -1964,7 +2310,9 @@ def run_training_and_real_paths(dev, card: str, report: dict, served: dict, work
                 / real_units["finetune_step"],
                 "evaluate_batch": real["evaluate"] / real_units["evaluate_batch"],
                 "infer_image": real["infer_whole"] / real_units["infer_image"],
-                "tiled_tile": (real["infer_tiled"] - views) / real_units["tiled_tile"]},
+                "tiled_tile": (real["infer_tiled"] - views) / real_units["tiled_tile"],
+                "interop_image": n_interop / INTEROP_IMAGES,
+                "remat_step": remat_step_launches.get(base, {}).get(dt, 0) / remat_n},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": "operations" if r["ops_bound_ms"] >= r["bound_ms"] / 2 else "bytes",

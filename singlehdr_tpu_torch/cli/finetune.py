@@ -8,9 +8,11 @@ lr 1e-5, resuming from ``--ref_ckpt`` when it holds a checkpoint:
   python -m singlehdr_tpu_torch.cli.finetune --records ./records
 
 Trains on CUDA, f32 with TF32 off; ``--device cpu`` trains on the CPU;
-``--dtype bfloat16`` computes the nets in bf16 (f32 parameters and loss).
-The JAX CLI's ``--mesh``, ``--coordinator``, ``--num_processes``,
-``--process_id`` (multi-device) and ``--remat`` have no counterpart yet.
+``--dtype bfloat16`` computes the nets in bf16 (f32 parameters and loss);
+``--remat`` recomputes each net's forward in the backward instead of keeping
+its activations (``train.steps``).  The JAX CLI's ``--mesh``,
+``--coordinator``, ``--num_processes`` and ``--process_id`` (multi-device)
+have no counterpart yet.
 """
 
 from __future__ import annotations
@@ -46,6 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; fails without a card) or cpu")
     add_dtype_arg(p)
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each net's forward in the backward (less memory, more work)")
     return p
 
 
@@ -60,7 +64,7 @@ def run(args):
         state, {"deq": args.deq_ckpt, "lin": args.lin_ckpt, "hal": args.hal_ckpt})
     return run_real_finetune(
         state=state,
-        step_fn=make_finetune_train_step(dtype),
+        step_fn=make_finetune_train_step(dtype, remat=args.remat),
         pipeline=pipeline,
         epochs=args.epochs,
         ckpt_dir=args.ref_ckpt,

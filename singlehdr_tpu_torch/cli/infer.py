@@ -21,7 +21,7 @@ import time
 import numpy as np
 
 from singlehdr_tpu_torch.cli import cli_device
-from singlehdr_tpu_torch.cli import serve
+from singlehdr_tpu_torch.convert import load_jax_variables
 from singlehdr_tpu_torch.data.hdr_io import read_ldr, write_hdr
 from singlehdr_tpu_torch.inference import HdrPredictor
 from singlehdr_tpu_torch.models import ReverseCameraPipeline, build_pipeline
@@ -34,7 +34,7 @@ INIT_SEED = 0
 
 def add_pipeline_args(p: argparse.ArgumentParser) -> None:
     """The four checkpoint slots, ``--weights`` and ``--device``, shared with the
-    evaluate CLI."""
+    evaluate and serve CLIs."""
     cwd = os.getcwd()
     for name in NETS:
         p.add_argument(f"--{name}_ckpt", type=str, default=os.path.join(cwd, f"checkpoints/{name}"))
@@ -58,11 +58,21 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def load_weights(weights: str | None, device) -> ReverseCameraPipeline:
+    """The pipeline in eval mode on ``device`` from a consolidated JAX .npz
+    (the seeded init without one), bridged by ``convert.load_jax_variables``."""
+    pipe = build_pipeline(seed=INIT_SEED, device="cpu")
+    if weights:
+        with np.load(weights) as z:
+            load_jax_variables(pipe, {k: z[k] for k in z.files})
+    return pipe.to(device).eval()
+
+
 def load_pipeline(args, device) -> ReverseCameraPipeline:
     """The pipeline in eval mode on ``device``: from ``--weights`` if given,
     else the seeded init with whatever checkpoints the four slots hold."""
     if args.weights:
-        return serve.load_pipeline(args.weights, device)
+        return load_weights(args.weights, device)
     pipe = build_pipeline(seed=INIT_SEED, device=device)
     load_pretrained_nets({name: getattr(pipe, name) for name in NETS},
                          {name: getattr(args, f"{name}_ckpt") for name in NETS})

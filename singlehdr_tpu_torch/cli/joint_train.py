@@ -9,7 +9,9 @@ resuming from ``--jnt_ckpt`` when it holds a checkpoint.
 
 Trains on CUDA, f32 with TF32 off; ``--device cpu`` trains on the CPU;
 ``--dtype bfloat16`` computes the nets in bf16 (f32 parameters and losses;
-the perceptual VGG stays f32, as in the JAX CLI).
+the perceptual VGG stays f32, as in the JAX CLI); ``--remat`` recomputes each
+net's forward in the backward instead of keeping its activations
+(``train.steps``).
 """
 
 from __future__ import annotations
@@ -51,6 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; fails without a card) or cpu")
     add_dtype_arg(p)
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each net's forward in the backward (less memory, more work)")
     return p
 
 
@@ -70,7 +74,7 @@ def run(args):
     return run_synth_training(
         module_name="jnt",
         state=state,
-        step_fn=make_joint_train_step(vgg, dtype),
+        step_fn=make_joint_train_step(vgg, dtype, remat=args.remat),
         dataset=dataset,
         cfg=cfg,
         ckpt_dir=args.jnt_ckpt,

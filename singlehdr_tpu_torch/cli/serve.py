@@ -1,36 +1,31 @@
 """Serving CLI: HTTP endpoint for single-image HDR reconstruction on the GPU
 (counterpart of ``singlehdr_tpu.cli.serve``).
 
-  python -m singlehdr_tpu_torch.cli.serve --port 8080 [--weights pipeline.npz]
+  python -m singlehdr_tpu_torch.cli.serve --port 8080 \
+      --deq_ckpt ... --lin_ckpt ... --hal_ckpt ... --ref_ckpt ...
 
-POST an LDR JPEG/PNG to /predict and receive a Radiance .hdr body.  Without
-``--weights`` the pipeline is initialised from a fixed seed.  ``--weights``
-takes the JAX package's consolidated .npz (``cli.export_weights``), bridged
-by ``convert.from_jax_variables``.
+POST an LDR JPEG/PNG to /predict and receive a Radiance .hdr body.  The
+weights are loaded as the infer CLI loads them (``cli.infer.load_pipeline``):
+the four per-net checkpoint slots of the port's training (a finetune
+checkpoint holds all four nets), empty slots at the seeded initialisation,
+or ``--weights``, a consolidated JAX .npz (``cli.export_weights``,
+``cli.import_reference``).
 """
 
 from __future__ import annotations
 
 import argparse
 
-import numpy as np
-import torch
-
 from singlehdr_tpu_torch.cli import cli_device
-from singlehdr_tpu_torch.convert import load_jax_variables
+from singlehdr_tpu_torch.cli.infer import add_pipeline_args, load_pipeline
 from singlehdr_tpu_torch.inference import HdrPredictor
-from singlehdr_tpu_torch.models import build_pipeline
 from singlehdr_tpu_torch.serve import make_server
-
-INIT_SEED = 0
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Serve HDR reconstruction over HTTP")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
-    p.add_argument("--weights", type=str, default=None,
-                   help="consolidated JAX .npz weights (default: seeded init)")
     p.add_argument("--bucket", type=int, default=64,
                    help="pad request sizes to this multiple (bounds the shapes run)")
     p.add_argument("--max_batch", type=int, default=32,
@@ -40,8 +35,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup", type=str, default="512x512",
                    help="comma-separated HxW sizes to run at startup "
                         "(batch 1 and --max_batch each); '' disables")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="cuda (default; fails without a card) or cpu")
+    add_pipeline_args(p)
     return p
 
 
@@ -53,17 +47,14 @@ def parse_sizes(spec: str):
     return sizes
 
 
-def load_pipeline(weights: str | None, device) -> torch.nn.Module:
-    pipe = build_pipeline(seed=INIT_SEED, device="cpu")
-    if weights:
-        with np.load(weights) as z:
-            load_jax_variables(pipe, {k: z[k] for k in z.files})
-    return pipe.to(device).eval()
+def make_predictor(args) -> HdrPredictor:
+    """The predictor the CLI serves, on ``--device``, weights as ``load_pipeline``
+    loads them."""
+    return HdrPredictor(load_pipeline(args, cli_device(args.device)), bucket_multiple=args.bucket)
 
 
 def run(args) -> None:
-    predictor = HdrPredictor(load_pipeline(args.weights, cli_device(args.device)),
-                             bucket_multiple=args.bucket)
+    predictor = make_predictor(args)
     sizes = parse_sizes(args.warmup)
     if sizes:
         print(f"warming {len(sizes)} bucket(s) at batch 1 and {args.max_batch}...")

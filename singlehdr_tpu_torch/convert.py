@@ -52,6 +52,20 @@ def flat_variables(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     return flat
 
 
+def nest_variables(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    """Flat keys (``params/deq/unet/stem1/kernel``) -> the nested ``{"params":
+    {"deq": {...}}, "batch_stats": {...}}`` tree that ``train.weight_import``
+    works on, both collections present."""
+    out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    for key, arr in flat.items():
+        *path, leaf = key.split("/")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = arr
+    return out
+
+
 def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX variables -> the port's ``state_dict`` (f32 CPU tensors)."""
     out: Dict[str, torch.Tensor] = {}

@@ -28,6 +28,7 @@ the JAX parameter paths with dots (see ``convert.py``).
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -118,11 +119,14 @@ class Dense(nn.Module):
 class BatchNorm(nn.Module):
     """Keras BatchNormalization over dim 1 of NCHW (or [b, c]) tensors, in the
     compute dtype: the input is cast to ``dtype``, normalised in f32 with the
-    f32 parameters, and returned in ``dtype``."""
+    f32 parameters, and returned in ``dtype``.  In train mode the running
+    statistics move once a forward, unless ``update_stats`` is off
+    (``running_stats_frozen``)."""
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.update_stats = True
         self.weight = nn.Parameter(torch.empty(channels))
         self.bias = nn.Parameter(torch.empty(channels))
         self.register_buffer("running_mean", torch.empty(channels))
@@ -140,11 +144,11 @@ class BatchNorm(nn.Module):
         # Flax/Keras keep the BIASED batch variance in the running average;
         # torch's own update would store the unbiased one (n / (n - 1)).  The
         # statistics are reduced in f32 whatever the compute dtype, as Flax's.
-        with torch.no_grad():
-            dims = (0,) + tuple(range(2, x.dim()))
-            var, mean = torch.var_mean(x.float(), dim=dims, unbiased=False)
-            self.running_mean.mul_(1.0 - BN_MOMENTUM).add_(mean, alpha=BN_MOMENTUM)
-            self.running_var.mul_(1.0 - BN_MOMENTUM).add_(var, alpha=BN_MOMENTUM)
+        if self.update_stats:
+            with torch.no_grad():
+                dims = (0,) + tuple(range(2, x.dim()))
+                var, mean = torch.var_mean(x.float(), dim=dims, unbiased=False)
+                self._update_running(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, BN_EPSILON)
 
     def _train_as_flax(self, x: torch.Tensor) -> torch.Tensor:
@@ -157,17 +161,37 @@ class BatchNorm(nn.Module):
         dims = (0,) + tuple(range(2, x.dim()))
         shape = (1, -1) + (1,) * (x.dim() - 2)
         var, mean = torch.var_mean(x.float(), dim=dims, unbiased=False)
-        with torch.no_grad():  # the biased variance, as Flax keeps it
-            self.running_mean.mul_(1.0 - BN_MOMENTUM).add_(mean, alpha=BN_MOMENTUM)
-            self.running_var.mul_(1.0 - BN_MOMENTUM).add_(var, alpha=BN_MOMENTUM)
+        if self.update_stats:
+            with torch.no_grad():  # the biased variance, as Flax keeps it
+                self._update_running(mean, var)
         mul = torch.rsqrt(var + BN_EPSILON) * self.weight
         y = (x.float() - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(self.dtype)
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.running_mean.mul_(1.0 - BN_MOMENTUM).add_(mean, alpha=BN_MOMENTUM)
+        self.running_var.mul_(1.0 - BN_MOMENTUM).add_(var, alpha=BN_MOMENTUM)
 
     def folded(self) -> tuple[torch.Tensor, torch.Tensor]:
         """Eval BN as an affine map: y = x * scale + shift, per channel."""
         scale = self.weight / torch.sqrt(self.running_var + BN_EPSILON)
         return scale, self.bias - self.running_mean * scale
+
+
+@contextlib.contextmanager
+def running_stats_frozen(module: nn.Module):
+    """Within the block, ``module``'s BatchNorm layers normalise with their
+    batch statistics in train mode but leave their running statistics as they
+    are: a checkpointed forward recomputed in the backward must not apply the
+    momentum a second time."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_stats = True
 
 
 def _glorot_(w: torch.Tensor, generator: torch.Generator) -> None:

@@ -21,15 +21,29 @@ are public so that a caller can time forward, backward and optimizer apart.
 Each factory takes the compute ``dtype``, as the JAX factories do; the nets
 of the state it is called with must compute in it (``init_*_state(dtype=...)``;
 a mismatch raises).  The nets return f32, so the losses are f32 in both.
+
+The joint and finetune factories take ``remat``, as JAX's do (its ``_apply``):
+each net's forward inside the loss is checkpointed and recomputed in the
+backward, to trade work for memory.  ``True`` keeps only each net's input
+(``torch.utils.checkpoint``); ``'convs'`` also keeps the outputs of the
+convolutions and matmuls and recomputes what lies between them (selective
+checkpointing, JAX's policy on ``conv_general_dilated``/``dot_general``).
+``apply_rf``, the masks, the losses and Adam stay outside, as in JAX.  The
+recompute leaves the BatchNorm running statistics alone
+(``layers.running_stats_frozen``): they move once a step, as without remat.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 from typing import Callable, NamedTuple
 
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
+from singlehdr_tpu_torch.models.layers import running_stats_frozen
 from singlehdr_tpu_torch.ops.color import bgr_to_rgb
 from singlehdr_tpu_torch.ops.curves import apply_rf
 from singlehdr_tpu_torch.ops.losses import hallucination_loss, masked_l2, scalar_from_per_sample
@@ -125,12 +139,46 @@ def apply_gradients(state: TrainState, loss: torch.Tensor) -> None:
     state.step += 1
 
 
-def _step(loss_fn: Callable, dtype: torch.dtype, *bound) -> Callable[..., StepOutput]:
+# the ops whose outputs remat='convs' keeps
+SAVED_BY_CONVS = (torch.ops.aten.convolution.default, torch.ops.aten.mm.default,
+                   torch.ops.aten.addmm.default)
+
+
+def _save_convs_and_matmuls(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in SAVED_BY_CONVS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+@contextlib.contextmanager
+def _recompute(net: torch.nn.Module, policy_context):
+    with policy_context, running_stats_frozen(net):
+        yield
+
+
+def _checkpointed(net: torch.nn.Module, remat) -> Callable:
+    """``net``'s forward as the loss calls it under ``remat``."""
+    if remat is False:
+        return net
+
+    def contexts():
+        if remat == "convs":
+            forward, recompute = create_selective_checkpoint_contexts(_save_convs_and_matmuls)
+        else:
+            forward, recompute = contextlib.nullcontext(), contextlib.nullcontext()
+        return forward, _recompute(net, recompute)
+
+    return functools.partial(checkpoint, net, use_reentrant=False, context_fn=contexts)
+
+
+def _step(loss_fn: Callable, dtype: torch.dtype, *bound, remat=False) -> Callable[..., StepOutput]:
+    if remat is not False and remat is not True and remat != "convs":
+        raise ValueError(f"remat must be False, True or 'convs', got {remat!r}")
+
     def train_step(state: TrainState, *batch) -> StepOutput:
         if state.dtype != dtype:
             raise ValueError(f"a {dtype} train step called on nets that compute in {state.dtype}")
         state.nets.train()
-        loss, aux = loss_fn(state.nets, *bound, *batch)
+        nets = {name: _checkpointed(net, remat) for name, net in state.nets.items()}
+        loss, aux = loss_fn(nets, *bound, *batch)
         apply_gradients(state, loss)
         return StepOutput(loss.detach(), {k: v.detach() for k, v in aux.items()})
 
@@ -152,11 +200,11 @@ def make_hal_train_step(vgg, dtype: torch.dtype = torch.float32):
     return _step(hal_loss, dtype, vgg)
 
 
-def make_joint_train_step(vgg, dtype: torch.dtype = torch.float32):
+def make_joint_train_step(vgg, dtype: torch.dtype = torch.float32, remat: bool | str = False):
     """Joint deq + lin + hal: ``step(state, ldr, jpeg, clipped_hdr_t, hdr_t, mask, invcrf_gt)``."""
-    return _step(joint_loss, dtype, vgg)
+    return _step(joint_loss, dtype, vgg, remat=remat)
 
 
-def make_finetune_train_step(dtype: torch.dtype = torch.float32):
+def make_finetune_train_step(dtype: torch.dtype = torch.float32, remat: bool | str = False):
     """All four nets on HDR-Real: ``step(state, ldr, hdr)``."""
-    return _step(finetune_loss, dtype)
+    return _step(finetune_loss, dtype, remat=remat)

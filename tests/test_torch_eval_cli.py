@@ -17,11 +17,14 @@ from singlehdr_tpu.cli import evaluate as jax_evaluate
 from singlehdr_tpu.data.hdr_io import write_hdr
 from singlehdr_tpu.train.weight_import import save_variables_npz
 from singlehdr_tpu_torch.cli import convert_records, evaluate, finetune, infer, validate_synth
+from singlehdr_tpu_torch.cli import serve as cli_serve
 from singlehdr_tpu_torch.data.hdr_io import read_hdr
 from singlehdr_tpu_torch.data.records import RecordDataset
 from singlehdr_tpu_torch.ops import cuda as kernels
+from singlehdr_tpu_torch.inference import HdrPredictor
 from singlehdr_tpu_torch.train.checkpoint import CheckpointManager
 from singlehdr_tpu_torch.train.state import init_multi_state
+from singlehdr_tpu_torch.train.steps import make_finetune_train_step
 
 from test_torch_models import seeded_variables
 from test_torch_real import write_real_tree
@@ -95,6 +98,41 @@ def test_infer_cli_whole_and_tiled(finetuned, tmp_path, tiled):
     hdr = read_hdr(path)
     assert hdr.shape == (100, 140, 3) and np.isfinite(hdr).all()
     assert kernels.launch_counts() == {n: 0 for n in kernels.KERNELS}  # CPU: plain versions
+
+
+def test_serve_cli_loads_the_four_checkpoint_slots(finetuned):
+    """The serve CLI serves the finetune checkpoint from its four slots, as
+    the infer CLI loads it: the same state and the same output."""
+    args = cli_serve.build_parser().parse_args(["--device", "cpu", "--warmup", "",
+                                                *_every_slot(finetuned)])
+    served = cli_serve.make_predictor(args)
+    pipe = infer.load_pipeline(infer.build_parser().parse_args(["--device", "cpu",
+                                                                *_every_slot(finetuned)]), "cpu")
+    saved = CheckpointManager(finetuned).load(3)["nets"]
+    got = served.pipeline.state_dict()
+    for key, value in pipe.state_dict().items():
+        assert torch.equal(got[key], value), key
+        net, _, rest = key.partition(".")
+        assert torch.equal(value, saved[net][rest]), key
+    img = np.random.RandomState(4).rand(64, 96, 3).astype(np.float32)
+    np.testing.assert_array_equal(served(img), HdrPredictor(pipe)(img))
+
+
+def test_finetune_cli_remat_reaches_the_step_factory(records, tmp_path, monkeypatch):
+    made = []
+
+    def factory(dtype, remat=False):
+        made.append(remat)
+        return make_finetune_train_step(dtype, remat=remat)
+
+    monkeypatch.setattr(finetune, "make_finetune_train_step", factory)
+    monkeypatch.chdir(tmp_path)
+    state = finetune.run(finetune.build_parser().parse_args(
+        ["--records", records, "--device", "cpu", "--epochs", "1", "--batch_size", "6", "--remat",
+         "--deq_ckpt", str(tmp_path / "ck_deq"), "--lin_ckpt", str(tmp_path / "ck_lin"),
+         "--hal_ckpt", str(tmp_path / "ck_hal"), "--ref_ckpt", str(tmp_path / "ck_ref")]))
+    assert made == [True] and state.step == 1
+    assert CheckpointManager(str(tmp_path / "ck_ref")).steps() == [1]
 
 
 def test_evaluate_cli_on_the_finetune_checkpoint(records, finetuned):

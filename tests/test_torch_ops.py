@@ -313,6 +313,9 @@ def test_port_imports_no_jax():
         "import singlehdr_tpu_torch.cli.convert_records, singlehdr_tpu_torch.cli.finetune\n"
         "import singlehdr_tpu_torch.cli.infer, singlehdr_tpu_torch.cli.evaluate\n"
         "import singlehdr_tpu_torch.cli.validate_synth\n"
+        "import singlehdr_tpu_torch.train.tensorbundle, singlehdr_tpu_torch.train.object_graph\n"
+        "import singlehdr_tpu_torch.train.ref_inventory, singlehdr_tpu_torch.train.weight_import\n"
+        "import singlehdr_tpu_torch.cli.import_reference, singlehdr_tpu_torch.cli.export_weights\n"
         "singlehdr_tpu_torch.calib.get_crf_bank()\n"
         "singlehdr_tpu_torch.data.native_jpeg.available()\n"
         "import tempfile\n"
@@ -320,7 +323,7 @@ def test_port_imports_no_jax():
         "with tempfile.TemporaryDirectory() as d:\n"
         "    chip_smoke.write_hdr_files(d, 1)\n"
         "    chip_smoke.write_real_pairs(d, 1)\n"
-        "bad = [m for m in ('jax', 'flax', 'optax') if m in sys.modules]\n"
+        "bad = [m for m in ('jax', 'flax', 'optax', 'tensorflow') if m in sys.modules]\n"
         "bad += [m for m in sys.modules if m == 'singlehdr_tpu' or m.startswith('singlehdr_tpu.')]\n"
         "assert not bad, bad\n"
     )
@@ -329,7 +332,8 @@ def test_port_imports_no_jax():
         tree = ast.parse(f.read())
     named = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
     named += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
-    assert not [m for m in named if m.split(".")[0] in ("singlehdr_tpu", "jax", "flax", "optax")]
+    assert not [m for m in named if m.split(".")[0] in ("singlehdr_tpu", "jax", "flax", "optax",
+                                                       "tensorflow")]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [ROOT, os.environ.get("PYTHONPATH")])))
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,

@@ -20,6 +20,7 @@ from singlehdr_tpu import models as jm
 from singlehdr_tpu.data import hdr_io
 from singlehdr_tpu.inference import HdrPredictor as JaxHdrPredictor
 from singlehdr_tpu_torch import models as tm
+from singlehdr_tpu_torch.cli import infer as cli_infer
 from singlehdr_tpu_torch.cli import serve as cli_serve
 from singlehdr_tpu_torch.convert import load_jax_variables
 from singlehdr_tpu_torch.inference import HdrPredictor, crop_back, pad_to_multiple
@@ -69,7 +70,7 @@ def test_serve_cli_defaults_to_the_card_and_raises_without_one(monkeypatch):
 
 @pytest.fixture(scope="module")
 def server():
-    predictor = HdrPredictor(cli_serve.load_pipeline(None, "cpu"))
+    predictor = HdrPredictor(cli_infer.load_weights(None, "cpu"))
     predictor.warmup([(64, 64)], batch_sizes=(1, 4))
     srv = make_server(predictor, "127.0.0.1", 0, max_batch=4, batch_window_s=0.05)
     thread = threading.Thread(target=srv.serve_forever, daemon=True)

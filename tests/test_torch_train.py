@@ -14,6 +14,12 @@ optax's Adam applied to them gives JAX's next parameters.  Bounds:
   * the parameters after one Adam step within 2 lr: the first step moves each
     by ~lr sign(g), and a gradient within sum-order noise of 0 may flip sign.
 
+The joint and finetune steps also run with ``remat=True`` and ``'convs'``,
+each against the JAX step with the same ``remat``, under the same bounds;
+and a remat step leaves every gradient, the loss and the BatchNorm running
+statistics bit-equal to the plain port step's (the recompute must not
+update the statistics a second time), in f32 and bf16.
+
 Shapes: 2x32x32 for every step.
 """
 
@@ -116,8 +122,8 @@ def _variables(names, seed):
             "batch_stats": {n: v.get("batch_stats", {}) for n, v in per.items()}}
 
 
-def _port_state(names, variables):
-    nets = nn.ModuleDict({n: NETS[n][1]() for n in names})
+def _port_state(names, variables, dtype=torch.float32):
+    nets = nn.ModuleDict({n: NETS[n][1](dtype) for n in names})
     load_jax_variables(nets[names[0]] if len(names) == 1 else nets, variables)
     return TrainState(nets, make_optimizer(nets.parameters(), LR))
 
@@ -132,31 +138,41 @@ STEPS = {
             ("hdr_t", "clipped_hdr_t", "mask")),
     "joint": (("deq", "lin", "hal"), jsteps.make_joint_train_step, steps.make_joint_train_step,
               ("ldr", "jpeg", "clipped_hdr_t", "hdr_t", "mask", "invcrf")),
-    "finetune": (("deq", "lin", "hal", "ref"), lambda v: jsteps.make_finetune_train_step(),
-                 lambda v: steps.make_finetune_train_step(), ("ldr", "hdr")),
+    "finetune": (("deq", "lin", "hal", "ref"), lambda v, **kw: jsteps.make_finetune_train_step(**kw),
+                 lambda v, **kw: steps.make_finetune_train_step(**kw), ("ldr", "hdr")),
 }
+# case -> (step name, remat): the factories that take remat, as in JAX
+REMAT_CASES = {f"{name}-{label}": (name, remat) for name in ("joint", "finetune")
+               for label, remat in (("remat", True), ("convs", "convs"))}
+CASES = {**{name: (name, False) for name in STEPS}, **REMAT_CASES}
 
 
-@pytest.mark.parametrize("name", list(STEPS))
-def test_step_matches_jax(name, vggs):
+def _finetune_batch(seed):
+    batch = _batch(seed)
+    # keep C_pred off 1.0: a saturated pixel maps to the curve's last
+    # sample, which the two packages' cumsums put 1 ulp either side of
+    # 1.0, and at exactly 1.0 the highlight mask's clip has a kink
+    # (gradient 1/t below, 0.5/t at, 0 above)
+    batch["ldr"] = batch["ldr"] * 0.5
+    return batch
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_step_matches_jax(case, vggs):
+    name, remat = CASES[case]
     names, jfactory, pfactory, keys = STEPS[name]
+    kw = {"remat": remat} if remat else {}
     variables = _variables(names, seed=20)
-    batch = _batch(21)
-    if name == "finetune":
-        # keep C_pred off 1.0: a saturated pixel maps to the curve's last
-        # sample, which the two packages' cumsums put 1 ulp either side of
-        # 1.0, and at exactly 1.0 the highlight mask's clip has a kink
-        # (gradient 1/t below, 0.5/t at, 0 above)
-        batch["ldr"] = batch["ldr"] * 0.5
-    jstate, jloss, jaux = jfactory(vggs[1])(_jax_state(variables, _recording_tx()),
-                                            *[jnp.asarray(batch[k]) for k in keys])
+    batch = _finetune_batch(21) if name == "finetune" else _batch(21)
+    jstate, jloss, jaux = jfactory(vggs[1], **kw)(_jax_state(variables, _recording_tx()),
+                                                  *[jnp.asarray(batch[k]) for k in keys])
     grads = jstate.opt_state
     adam = jax_make_optimizer(LR)
     updates, _ = adam.update(grads, adam.init(jstate.params), jstate.params)
     jax_next = optax.apply_updates(jstate.params, updates)
 
     state = _port_state(names, variables)
-    loss, aux = pfactory(vggs[0])(state, *_port_args(batch, keys))
+    loss, aux = pfactory(vggs[0], **kw)(state, *_port_args(batch, keys))
     assert state.step == 1 and set(aux) == set(jaux)
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
 
@@ -190,6 +206,36 @@ def test_step_matches_jax(name, vggs):
     for key, value in new_stats.items():
         np.testing.assert_allclose(buffers[prefix + key].numpy(), value.numpy(), atol=1e-5,
                                    err_msg=key)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(REMAT_CASES))
+def test_remat_step_equals_the_plain_step(case, dtype, vggs):
+    """Loss, every gradient and every buffer (the BatchNorm running
+    statistics) bit-equal to the plain step's on the CPU: a second momentum
+    update in the recompute would move the statistics by about 1 %."""
+    name, remat = REMAT_CASES[case]
+    names, _, pfactory, keys = STEPS[name]
+    variables = _variables(names, seed=50)
+    args = _port_args(_finetune_batch(51) if name == "finetune" else _batch(51), keys)
+    results = []
+    for kw in ({}, {"remat": remat}):
+        state = _port_state(names, variables, dtype)
+        loss, _ = pfactory(vggs[0], dtype=dtype, **kw)(state, *args)
+        results.append((loss, {n: p.grad for n, p in state.nets.named_parameters()},
+                        dict(state.nets.named_buffers())))
+    (loss, grads, buffers), (rloss, rgrads, rbuffers) = results
+    assert torch.equal(rloss, loss)
+    for key, g in grads.items():
+        assert torch.equal(rgrads[key], g), key
+    assert buffers and set(rbuffers) == set(buffers)
+    for key, b in buffers.items():
+        assert torch.equal(rbuffers[key], b), key
+
+
+def test_remat_takes_false_true_or_convs():
+    with pytest.raises(ValueError, match="remat"):
+        steps.make_finetune_train_step(remat="all")
 
 
 def test_adam_matches_optax_given_the_same_gradients():

@@ -191,6 +191,24 @@ def test_joint_train_cli_trains_and_resumes(synth_dir, tmp_path, monkeypatch, ca
     assert os.path.isdir(tmp_path / "tensorboard" / "jnt")
 
 
+def test_joint_train_cli_remat_reaches_the_step_factory(synth_dir, tmp_path, monkeypatch):
+    made = []
+
+    def factory(vgg, dtype, remat=False):
+        made.append(remat)
+        return steps.make_joint_train_step(vgg, dtype, remat=remat)
+
+    monkeypatch.setattr(joint_train, "make_joint_train_step", factory)
+    monkeypatch.chdir(tmp_path)
+    state = joint_train.run(joint_train.build_parser().parse_args([
+        "--dir", synth_dir, "--device", "cpu", "--remat",
+        "--deq_ckpt", str(tmp_path / "ck_deq"), "--lin_ckpt", str(tmp_path / "ck_lin"),
+        "--hal_ckpt", str(tmp_path / "ck_hal"), "--jnt_ckpt", str(tmp_path / "ck_jnt"),
+        "--batch_size", "2", "--patch_size", "64", "--iterations", "1", "--workers", "2"]))
+    assert made == [True] and state.step == 1
+    assert CheckpointManager(str(tmp_path / "ck_jnt")).steps() == [1]
+
+
 def test_train_cli_per_net_steps(synth_dir, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     args = train.build_parser().parse_args([
