@@ -2,6 +2,7 @@
 f32 and bf16), holds each against its plain PyTorch version at the serving,
 training and HDR-Real shapes, serves a few requests through the port's HTTP
 server, trains the joint configuration through the ``joint_train`` CLI,
+trains on a data mesh (two ranks on the card; the CLIs at ``--mesh 1``),
 runs the HDR-Real path (record conversion, finetune, whole and tiled
 inference, evaluation, HDR-Synth validation) through its CLIs, carries the
 trained checkpoints through the reference TF2 format and back, and trains
@@ -100,7 +101,26 @@ Phases (each prints its own lines; any failure exits non-zero):
              (True below the plain step, 'convs' not above) and step time
              in synchronised rounds; K1 and K1-bwd once a step and K2-K4
              never; cli.finetune --remat (one epoch, bf16) and
-             cli.joint_train --remat (2 steps)
+             cli.joint_train --remat (2 steps); phase 10's bf16 check with
+             cuDNN free to choose its algorithms: the bf16 joint step at 2 x
+             64^2 with remat False, True and 'convs' against the CPU f32
+             step (as phase 10), and at 16 x 256^2 each remat mode against
+             the card's f32 plain step as the plain bf16 step is; each
+             mode's kernels by name (the profiler's) against the plain
+             step's, and the tensor farthest from the plain bf16 step
+  15 multi   (a) two gloo ranks on the one card (CUDA tensors; subprocesses
+             of this script, ``--mesh-rank``, under a timeout): the joint
+             step at 16 x 256^2 (8 a rank) in f32 and bf16 and the finetune
+             step at 4 x 256^2 (2 a rank), each against the single-process
+             step on the full batch from one snapshot by phase 10's
+             criteria, the ranks' parameters bit-equal, the step's time (two
+             processes sharing one card: not a scaling figure); (b)
+             cli.joint_train (2 steps) and cli.finetune (2 epochs of one
+             batch of 4, no tail) with --mesh 1, a process group of one over
+             NCCL, against the same CLI without it: logged losses,
+             parameters and BN statistics after step 1, final parameters; (c) the joint step with --mesh 1 against
+             without (f32, bf16, in turns) and the gradient all-reduce's
+             time; K1 and K1-bwd counted on the mesh runs, K2-K4 never
 The second-to-last line is the kernels' JSON record, one entry a (kernel,
 dtype): K2-K4's bf16 kernels as ``unet_stage2_bf16``, ``lin_feature_stem_bf16``
 and ``encoder_stage2_bf16`` (with each kernel's launches by path and per
@@ -189,6 +209,11 @@ BF16_STEP_NOISE_FACTOR = 1.5
 BF16_STEP_COS_SLACK, BF16_STEP_COS_MIN = 0.2, 0.5
 BF16_STEP_DEQ_TOL = 0.03
 BF16_STEP_LOSS_REL_TOL = 1e-3
+# the bf16 step's new BatchNorm statistics, two processes against one: their
+# inputs are bf16, where the two sum orders of the statistics flip ulps that
+# the deeper layers carry (lin's res4-res5 running means 2.2e-3 of their max
+# on the CPU at 4 x 32^2, measured); two bf16 ulps of the max
+BF16_STATS_REL_TOL = 2.0 ** -7
 # tensors whose gradient, zeroed or sign-flipped on the card's side, the bound
 # must flag: small ones (BN scale and shift) and lin's dense head
 PLANTED_FAULTS = ("lin.crf_feature_net.stem_bn.weight", "lin.crf_feature_net.stem_bn.bias",
@@ -242,6 +267,39 @@ REMAT_MODES = (False, True, "convs")
 REMAT_REL_TOL = 1e-6
 REMAT_ROUNDS, REMAT_CALLS = 2, 3
 REMAT_CLI_ITERATIONS = 2
+# phase 15, multi-device on the one card: two gloo ranks (CUDA tensors, one
+# card), each case's step held to the single-process step on the full batch
+# by phase 10's criteria; the CLIs at --mesh 1 over NCCL against their
+# meshless runs; the mesh's cost at world 1
+MESH_RANKS = 2
+MESH_RANK_TIMEOUT_S = 600
+MESH_TIMED_STEPS = 3      # a case's steps timed on the ranks after the compared one
+MESH_CLI_ITERATIONS = 2
+# cli.finetune: one epoch of MESH_FT_STEPS steps on phase 12's pairs cut at
+# MESH_FT_STRIDE (30 records of 256^2, batches of MESH_FT_BATCH: no tail to
+# pad); over 15 steps --mesh 1 and the meshless run drift apart by more than
+# phase 10's one-step bounds, so each reading may also reach MESH_CLI_SLACK
+# times the farthest witness's, each a meshless run that rounds otherwise:
+# from the same checkpoint with every weight moved by one ulp (seeded), once
+# at the start ("ulp0", "ulp1"), and with cuDNN held to its deterministic
+# algorithms, which round every conv otherwise at every step, as the mesh's
+# BatchNorm does its statistics ("cudnn_det")
+MESH_FT_STRIDE = 128
+MESH_FT_BATCH = 2
+MESH_FT_STEPS = 15
+MESH_CLI_WITNESSES = ("ulp0", "ulp1", "cudnn_det")
+MESH_CLI_SLACK = 2.0
+# the finetune step at 4 x 256^2 (2 a rank) is held in two ways.  In float64
+# the two ranks are the one-process step but for rounding: every gradient
+# within MESH_F64_REL_TOL of its net's largest, the loss within it too.  In
+# f32 phase 10's per-tensor bound does not hold for this step even between
+# two one-process runs that differ only by rounding (its L1 signs, clips and
+# LUT bins), so each net's distance from the float64 step is held to
+# MESH_F32_SLACK times the farthest of MESH_F32_WITNESSES + 2 one-process f32
+# steps: the step itself, again, and on inputs moved by one ulp each, seeded
+MESH_F64_REL_TOL = 1e-10
+MESH_F32_WITNESSES = 3
+MESH_F32_SLACK = 2.0
 HBM_BYTES_PER_S = 3.35e12
 SLEEP_CYCLES_PER_S = 2.0e9  # device_ms's lead: at least the SM clock (1.98 GHz at most)
 F32_TENSOR_FLOPS = 495e12 / 3   # 3xTF32
@@ -1228,9 +1286,10 @@ def joint_batch(dev, b: int, hw: int, seed: int) -> list:
     return [t.to(dev) for t in (ldr, jpeg, clipped, hdr_t, torch.ones(b, 1, 1, 1), invcrf)]
 
 
-def step_parity(dev) -> None:
+def step_parity(dev) -> tuple:
     """Phase 10: one joint step on the card vs the same step on the CPU, then
-    one finetune step on the card."""
+    one finetune step on the card.  Returns the CPU f32 and CPU bf16 joint
+    steps' gradients (float64 CPU tensors by name), phase 14's references."""
     from singlehdr_tpu_torch.models.vgg16 import Vgg16Features
     from singlehdr_tpu_torch.ops import cuda as kernels
     from singlehdr_tpu_torch.train import steps
@@ -1300,7 +1359,7 @@ def step_parity(dev) -> None:
           f"{max((own[n] / net_max[n.split('.')[0]] for n in missed), default=0):.2e} of "
           f"their net's: {', '.join(missed)}", flush=True)
 
-    bf16_step_parity(dev, cpu)
+    cpu16 = bf16_step_parity(dev, cpu)
 
     state = init_multi_state(("deq", "lin", "hal", "ref"), 1e-5, seed=SEED, device=dev)
     g = torch.Generator().manual_seed(SEED + 3)
@@ -1317,6 +1376,7 @@ def step_parity(dev) -> None:
         raise AssertionError("finetune step: the gradient reaching deq is not finite and non-zero")
     print(f"  finetune step 4x{TRAIN_HW}^2 on the card: loss {loss.item():.2f}, deq max|g| "
           f"{max(gr.abs().max().item() for gr in deq_grads):.3e}, launches {counts}", flush=True)
+    return cpu, cpu16
 
 
 def net_distance(d: dict, ref: dict, net: str) -> tuple:
@@ -1344,10 +1404,11 @@ def bf16_net_failures(net: str, got: dict, ref: dict, cpu16: dict) -> list:
     return out
 
 
-def bf16_step_parity(dev, ref: dict) -> None:
+def bf16_step_parity(dev, ref: dict) -> dict:
     """Phase 10, bf16: one joint step on the card and on the CPU in bf16, from
     phase 10's weights and batch, each net's gradients held to the CPU f32
-    step's ``ref`` (float64 CPU tensors) by ``bf16_net_failures``."""
+    step's ``ref`` (float64 CPU tensors) by ``bf16_net_failures``.  Returns
+    the CPU bf16 step's gradients."""
     from singlehdr_tpu_torch.models.vgg16 import Vgg16Features
     from singlehdr_tpu_torch.train import steps
     from singlehdr_tpu_torch.train.state import init_multi_state
@@ -1379,6 +1440,7 @@ def bf16_step_parity(dev, ref: dict) -> None:
                 failures.append(f"{net}: a {fault} gradient passes the bf16 bounds")
     if failures:
         raise AssertionError("bf16 joint step:\n  " + "\n  ".join(failures))
+    return cpu16
 
 
 def train_timings(dev, card: str, bwd_report: dict, dtype=torch.float32) -> float:
@@ -2018,8 +2080,12 @@ def remat_steps(dev, card: str, files: dict) -> tuple:
     differs from run to run, and a remat step can get other algorithms
     than the plain one, which moves bf16 gradients by an ulp); one step of
     each as it runs by default: its peak memory; then each mode's step time
-    in synchronised rounds; K1 and K1-bwd once a step.  Returns the
-    launches {kernel: {dtype: n}} and the number of steps."""
+    in synchronised rounds; K1 and K1-bwd once a step.  The bf16 joint
+    step's default runs are also held by phase 10's bf16 check, each remat
+    mode's gradients against the f32 plain step's as the plain bf16 step's
+    are (``bf16_remat_report``), and the plain bf16 step runs once more by
+    default, which reads its own run-to-run spread.  Returns the launches {kernel: {dtype: n}}
+    and the number of steps."""
     from singlehdr_tpu_torch.data.real import HdrRealPipeline
     from singlehdr_tpu_torch.models.vgg16 import Vgg16Features
     from singlehdr_tpu_torch.ops import cuda as kernels
@@ -2062,11 +2128,27 @@ def remat_steps(dev, card: str, files: dict) -> tuple:
                 _restore(state, snap)
                 base = torch.cuda.memory_allocated(dev)
                 torch.cuda.reset_peak_memory_stats(dev)
-                step(state, *batch)
+                if name == "joint" and dtype == torch.bfloat16:  # and its kernels, by name
+                    got[remat]["kernels"] = card_kernel_names(lambda: step(state, *batch))
+                    got[remat]["default_grads"] = {n: p.grad.double().cpu()
+                                                   for n, p in state.nets.named_parameters()}
+                else:
+                    step(state, *batch)
                 torch.cuda.synchronize()
                 got[remat]["peak"] = torch.cuda.max_memory_allocated(dev)
                 got[remat]["over"] = got[remat]["peak"] - base
             plain = got[False]
+            if name == "joint" and dtype == torch.float32:
+                joint_f32 = plain["grads"]
+            checked = name == "joint" and dtype == torch.bfloat16
+            if checked:  # the plain bf16 step once more as run by default: its own run-to-run spread
+                _restore(state, snap)
+                factories[name](dtype, False)(state, *batch)
+                again = grad_bound_ratio({n: p.grad.double().cpu() for n, p in state.nets.named_parameters()},
+                                         plain["default_grads"])
+                farthest = max(again, key=again.get)
+                print(f"  {label}, the plain step twice, default algorithms: farthest tensor {farthest} at "
+                      f"{again[farthest]:.3f} of phase 10's per-tensor bound", flush=True)
             net_max = {}
             for n, g in plain["grads"].items():
                 net_max[n.split(".")[0]] = max(net_max.get(n.split(".")[0], 0.0), g.abs().max().item())
@@ -2076,7 +2158,7 @@ def remat_steps(dev, card: str, files: dict) -> tuple:
                 step = factories[name](dtype, remat)
                 times[remat] = step_times(lambda: step(state, *batch), REMAT_ROUNDS, REMAT_CALLS)
             counts = kernels.launch_counts()
-            steps_here = 1 + len(REMAT_MODES) * (3 + REMAT_ROUNDS * REMAT_CALLS)
+            steps_here = 1 + len(REMAT_MODES) * (3 + REMAT_ROUNDS * REMAT_CALLS) + int(checked)
             n_steps += steps_here
             check_counts(f"{label}, {steps_here} steps", counts,
                          {k: v * steps_here for k, v in one_step.items()})
@@ -2100,6 +2182,14 @@ def remat_steps(dev, card: str, files: dict) -> tuple:
                 if not (loss_rel <= REMAT_REL_TOL and stats_rel <= REMAT_REL_TOL and ratio <= 1):
                     failures.append(f"remat={remat!r}: loss {loss_rel:.3e}, stats {stats_rel:.3e}, "
                                     f"gradients {ratio:.3f} of the bound")
+            if checked:
+                # phase 10's bf16 check with cuDNN free to choose: each remat
+                # mode against the f32 plain step, as the plain bf16 step is
+                for remat in REMAT_MODES[1:]:
+                    failures += bf16_remat_report(
+                        f"{label} remat={remat!r}, default algorithms, vs the f32 plain step",
+                        got[remat]["default_grads"], joint_f32, plain["default_grads"],
+                        plain["default_grads"], got[remat]["kernels"], plain["kernels"])
             if not got[True]["peak"] < plain["peak"]:
                 failures.append(f"remat=True peaks at {got[True]['peak']}, not below {plain['peak']}")
             if not got["convs"]["peak"] <= plain["peak"]:
@@ -2109,6 +2199,83 @@ def remat_steps(dev, card: str, files: dict) -> tuple:
             del state, snap, got
             torch.cuda.empty_cache()
     return total, n_steps
+
+
+def card_kernel_names(fn) -> set:
+    """The names of the device kernels one call of ``fn`` runs (the
+    profiler's), cuDNN's algorithms among them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:  # the exported trace's device kernels
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return {e["name"] for e in events if e.get("cat") == "kernel"}
+
+
+def bf16_remat_report(label: str, got: dict, ref: dict, noise: dict, plain: dict, kernels: set,
+                      plain_kernels: set) -> list:
+    """Prints one bf16 remat step's gradients ``got`` against phase 10's bf16
+    bounds (``bf16_net_failures``: distance and cosine to the f32 ``ref``
+    against those of a bf16 step's ``noise``), the tensor farthest from the
+    plain bf16 step's gradients ``plain`` by phase 10's per-tensor f32
+    bound, and the kernels the step ran that the plain step did not and the
+    other way round (cuDNN's algorithms show by name); returns the
+    failures."""
+    parts, worst_net, failures = [], (0.0, ""), []
+    for net in ("deq", "lin", "hal"):
+        dist, cos = net_distance(got, ref, net)
+        noise_dist, noise_cos = net_distance(noise, ref, net)
+        bound = BF16_STEP_DEQ_TOL if net == "deq" else BF16_STEP_NOISE_FACTOR * noise_dist + 0.02
+        worst_net = max(worst_net, (dist / bound, net))
+        parts.append(f"{net} {dist:.4f} of bound {bound:.4f} (cos {cos:.4f}; plain {noise_dist:.4f}, "
+                     f"cos {noise_cos:.4f})")
+        failures += bf16_net_failures(net, got, ref, noise)
+    ratio = grad_bound_ratio(got, plain)
+    tensor = max(ratio, key=ratio.get)
+    added, gone = sorted(kernels - plain_kernels), sorted(plain_kernels - kernels)
+    print(f"  {label}: distance from the f32 step: {'; '.join(parts)}; worst net {worst_net[1]} at "
+          f"{worst_net[0]:.3f} of its bound; farthest tensor from the plain bf16 step {tensor} at "
+          f"{ratio[tensor]:.3f} of phase 10's per-tensor bound; {len(kernels)} kernels by name, "
+          f"{len(added)} not in the plain step, {len(gone)} of the plain step not run", flush=True)
+    for tag, names in (("+", added), ("-", gone)):
+        for name in names[:6]:
+            print(f"    {tag} {name[:160]}", flush=True)
+    return [f"{label}: {f}" for f in failures]
+
+
+def remat_bf16_parity(dev, card: str, cpu_grads: tuple) -> None:
+    """Phase 14, bf16 under remat with cuDNN's own algorithms: phase 10's
+    bf16 joint step (2 x 64^2, its weights and batch) on the card with
+    remat False, True and 'convs', each as it runs by default (no
+    ``cudnn.deterministic``), held to the CPU f32 step by phase 10's bf16
+    check (``bf16_net_failures`` against the CPU f32 and CPU bf16 steps'
+    gradients ``cpu_grads``), with each mode's kernels against the plain
+    step's."""
+    from singlehdr_tpu_torch.models.vgg16 import Vgg16Features
+    from singlehdr_tpu_torch.train import steps
+    from singlehdr_tpu_torch.train.state import init_multi_state
+
+    ref, cpu16 = cpu_grads
+    vgg = Vgg16Features().to(dev)
+    batch = joint_batch(dev, 2, 64, SEED)
+    plain, plain_kernels, failures = None, None, []
+    for remat in REMAT_MODES:
+        state = init_multi_state(("deq", "lin", "hal"), 1e-5, seed=SEED, device=dev, dtype=torch.bfloat16)
+        step = steps.make_joint_train_step(vgg, torch.bfloat16, remat=remat)
+        names = card_kernel_names(lambda: step(state, *batch))
+        got = {n: p.grad.double().cpu() for n, p in state.nets.named_parameters()}
+        if remat is False:
+            plain, plain_kernels = got, names
+        failures += bf16_remat_report(f"bf16 joint step 2x64^2 remat={remat!r}, default algorithms, vs "
+                                      f"the CPU f32 step", got, ref, cpu16, plain, names, plain_kernels)
+    print(f"  [{card}]", flush=True)
+    if failures:
+        raise AssertionError("bf16 remat steps with cuDNN's own algorithms:\n  " + "\n  ".join(failures))
 
 
 def remat_clis(card: str, work: str, train_root: str, files: dict) -> dict:
@@ -2167,6 +2334,562 @@ def remat_clis(card: str, work: str, train_root: str, files: dict) -> dict:
     finally:
         os.chdir(cwd)
     return total
+
+
+def mesh_rank(rank: int, work: str) -> int:
+    """Phase 15 (a), one rank: joins a gloo group of MESH_RANKS processes on
+    the parent's device, the one card (``file://`` rendezvous under
+    ``work``), and for each case of ``work``/cases.json replicates the
+    snapshot, takes its rows of the global batch, runs one step (rank 0
+    saves the loss, the gradients and the BatchNorm statistics; every rank a
+    digest of its new parameters), then MESH_TIMED_STEPS more, timed (a
+    float64 case, ``float64_steps``, is not timed); saves its launch
+    counts."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from singlehdr_tpu_torch.models.vgg16 import Vgg16Features
+    from singlehdr_tpu_torch.ops import cuda as kernels
+    from singlehdr_tpu_torch.parallel import make_mesh, replicate, shard_batch
+    from singlehdr_tpu_torch.precision import use_full_f32
+    from singlehdr_tpu_torch.train import steps
+    from singlehdr_tpu_torch.train.state import init_multi_state
+
+    use_full_f32()
+    with open(os.path.join(work, "cases.json")) as f:
+        spec = json.load(f)
+    dev, cases = torch.device(spec["device"]), spec["cases"]
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    dist.init_process_group("gloo", init_method=f"file://{work}/rdzv", world_size=MESH_RANKS, rank=rank)
+    mesh = make_mesh(MESH_RANKS, device=dev)
+    vgg = Vgg16Features().to(dev)
+    kernels.reset_launches()
+    out, rank_steps = {}, 0
+    for case in cases:
+        dtype = getattr(torch, case["dtype"])
+        f64 = dtype == torch.float64
+        state = init_multi_state(case["nets"], 1e-5, seed=SEED, device=dev,
+                                 dtype=torch.float32 if f64 else dtype)
+        state.nets.load_state_dict(torch.load(os.path.join(work, case["snapshot"]), map_location=dev))
+        if f64:
+            float64_nets(state.nets)
+        replicate(mesh, state)
+        batch = shard_batch(mesh, torch.load(os.path.join(work, case["batch"])))
+        if f64:
+            batch = [t.double() for t in batch]
+        step = (steps.make_finetune_train_step(dtype) if case["step"] == "finetune"
+                else steps.make_joint_train_step(vgg, dtype))
+        with float64_steps() if f64 else contextlib.nullcontext():
+            loss, _ = step(state, *batch)
+        sync()
+        digest = hashlib.sha256()
+        for _, p in sorted(state.nets.named_parameters()):
+            digest.update(p.detach().float().cpu().numpy().tobytes())
+        result = {"digest": digest.hexdigest()}
+        if rank == 0:
+            result.update(loss=loss.item(),
+                          grads={n: p.grad.double().cpu() for n, p in state.nets.named_parameters()},
+                          stats={n: v.double().cpu() for n, v in state.nets.named_buffers()
+                                 if n.endswith(("running_mean", "running_var"))})
+        walls = [float("nan")] if f64 else []
+        for _ in range(0 if f64 else MESH_TIMED_STEPS):
+            dist.barrier()
+            sync()
+            t0 = time.perf_counter()
+            step(state, *batch)
+            sync()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        result["step_ms"] = float(np.median(walls))
+        rank_steps += 0 if f64 else 1 + MESH_TIMED_STEPS  # float64 launches no kernel
+        out[case["label"]] = result
+        del state, batch
+        sync()
+    out["launches"], out["rank_steps"] = kernels.launch_counts_by_dtype(), rank_steps
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def run_mesh_ranks(work: str) -> list:
+    """Starts the MESH_RANKS rank processes (``chip_smoke.py --mesh-rank``)
+    and waits for both under MESH_RANK_TIMEOUT_S; a failed or hung rank
+    fails the phase.  Returns each rank's results."""
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r), work],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(MESH_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MESH_RANK_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"mesh rank {r} exited {p.returncode}:\n{text[-4000:]}")
+    return [torch.load(os.path.join(work, f"rank{r}.pt")) for r in range(MESH_RANKS)]
+
+
+def grad_bound_ratio(got: dict, want: dict) -> dict:
+    """max|got - want| of each gradient tensor over phase 10's bound (its own
+    max|want| times STEP_GRAD_OWN_TOL + its net's largest times
+    STEP_GRAD_NET_TOL); > 1 fails."""
+    net_max = {}
+    for n, g in want.items():
+        net_max[n.split(".")[0]] = max(net_max.get(n.split(".")[0], 0.0), g.abs().max().item())
+    return {n: (got[n] - g).abs().max().item()
+            / (STEP_GRAD_OWN_TOL * g.abs().max().item() + STEP_GRAD_NET_TOL * net_max[n.split(".")[0]])
+            for n, g in want.items()}
+
+
+@contextlib.contextmanager
+def float64_steps():
+    """Within the block a train step of float64 nets (``float64_nets``)
+    runs in float64: the steps' ``apply_rf`` becomes its plain version (K1
+    takes f32 only); the port's BatchNorm takes its statistics in its
+    input's precision.  A reference for chip_smoke's checks, not a path of
+    the port."""
+    from singlehdr_tpu_torch.ops.cuda.apply_rf_cuda import apply_rf_plain
+    from singlehdr_tpu_torch.train import steps
+
+    rf = steps.apply_rf
+    steps.apply_rf = apply_rf_plain
+    try:
+        yield
+    finally:
+        steps.apply_rf = rf
+
+
+def float64_nets(nets):
+    """``nets`` in float64: parameters and buffers, and every layer's
+    compute dtype (lin's head is f32 in every dtype of the port)."""
+    nets.double()
+    for m in nets.modules():
+        if getattr(m, "dtype", None) == torch.float32:
+            m.dtype = torch.float64
+    return nets
+
+
+def float64_finetune_step(dev, snapshot: dict, batch: list) -> dict:
+    """One finetune step of the nets in ``snapshot`` on the card in float64
+    (``float64_steps``): its loss, gradients and new BatchNorm statistics,
+    as float64 CPU tensors."""
+    from singlehdr_tpu_torch.train import steps
+    from singlehdr_tpu_torch.train.state import init_multi_state
+
+    state = init_multi_state(("deq", "lin", "hal", "ref"), 1e-5, seed=SEED, device=dev)
+    state.nets.load_state_dict(snapshot)
+    float64_nets(state.nets)
+    with float64_steps():
+        loss, _ = steps.make_finetune_train_step(torch.float64)(
+            state, *[t.to(dev, torch.float64) for t in batch])
+    torch.cuda.synchronize()
+    out = {"loss": loss.item(), "grads": {n: p.grad.double().cpu() for n, p in state.nets.named_parameters()},
+           "stats": {n: v.double().cpu() for n, v in state.nets.named_buffers()
+                     if n.endswith(("running_mean", "running_var"))}}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def ulp_moved(batch: list, seed: int) -> list:
+    """``batch`` with every element moved by one f32 ulp, up or down at
+    random (seeded)."""
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for t in batch:
+        up = (torch.rand(t.shape, generator=g) < 0.5).to(t.device)
+        out.append(torch.where(up, torch.nextafter(t, torch.tensor(float("inf"), device=t.device)),
+                               torch.nextafter(t, torch.tensor(float("-inf"), device=t.device))))
+    return out
+
+
+def f64_ratio(got: dict, want: dict) -> dict:
+    """Each net's worst max|got - want| over its largest |want|."""
+    largest, worst = {}, {}
+    for n, w in want.items():
+        largest[n.split(".")[0]] = max(largest.get(n.split(".")[0], 0.0), w.abs().max().item())
+    for n, w in want.items():
+        net = n.split(".")[0]
+        worst[net] = max(worst.get(net, 0.0), (got[n] - w).abs().max().item() / largest[net])
+    return worst
+
+
+def mesh_two_ranks(dev, card: str, files: dict, work: str) -> tuple:
+    """Phase 15 (a): the joint step at batch 16, 256^2 (8 a rank), f32 and
+    bf16, and the finetune step at batch 4 (phase 12's first record batch,
+    2 a rank), f32 and float64, each on MESH_RANKS gloo ranks sharing the
+    one card (CUDA tensors; NCCL needs a card a rank), from the snapshot of
+    a seeded state, against the single-process step on the full batch from
+    the same snapshot.  The joint steps by phase 10's criteria: loss within
+    STEP_LOSS_REL_TOL (bf16 BF16_STEP_LOSS_REL_TOL), each gradient within
+    phase 10's bound (bf16: ``bf16_net_failures`` against the
+    single-process f32 and bf16 steps), the new BatchNorm statistics within
+    STEP_STATS_REL_TOL (bf16: BF16_STATS_REL_TOL).  The finetune step: in
+    float64 loss, gradients and statistics within MESH_F64_REL_TOL; in f32
+    loss and statistics as the joint step, each net's gradient distance
+    from the float64 step within MESH_F32_SLACK times its witnesses'
+    farthest (the comment at MESH_F64_REL_TOL says why).  Every case: the
+    ranks' parameters bit-equal.  Returns the ranks' launches and
+    rank-steps."""
+    from singlehdr_tpu_torch.data.real import HdrRealPipeline
+    from singlehdr_tpu_torch.models.vgg16 import Vgg16Features
+    from singlehdr_tpu_torch.train import steps
+    from singlehdr_tpu_torch.train.loop import upload_pair
+    from singlehdr_tpu_torch.train.state import init_multi_state
+
+    root = os.path.join(work, "mesh_ranks")
+    os.makedirs(root)
+    vgg = Vgg16Features().to(dev)
+    joint = [t.cpu() for t in joint_batch(dev, TRAIN_BATCH, TRAIN_HW, SEED + 5)]
+    finetune = [t.cpu() for t in upload_pair(
+        *next(HdrRealPipeline(files["records"], REAL_BATCH, seed=SEED).epoch()), dev)]
+    all_nets = ["deq", "lin", "hal", "ref"]
+    cases = [{"label": "joint f32", "step": "joint", "dtype": "float32", "nets": ["deq", "lin", "hal"],
+              "batch": "joint.pt"},
+             {"label": "joint bf16", "step": "joint", "dtype": "bfloat16", "nets": ["deq", "lin", "hal"],
+              "batch": "joint.pt"},
+             {"label": "finetune f32", "step": "finetune", "dtype": "float32", "nets": all_nets,
+              "batch": "finetune.pt"},
+             {"label": "finetune f64", "step": "finetune", "dtype": "float64", "nets": all_nets,
+              "batch": "finetune.pt", "snapshot": "finetune_float32.pt"}]
+    torch.save(joint, os.path.join(root, "joint.pt"))
+    torch.save(finetune, os.path.join(root, "finetune.pt"))
+    single = {}
+    for case in cases:
+        if case["dtype"] == "float64":
+            single[case["label"]] = float64_finetune_step(
+                dev, torch.load(os.path.join(root, case["snapshot"])), finetune)
+            continue
+        dtype = getattr(torch, case["dtype"])
+        case["snapshot"] = f"{case['step']}_{case['dtype']}.pt"
+        step = (steps.make_finetune_train_step(dtype) if case["step"] == "finetune"
+                else steps.make_joint_train_step(vgg, dtype))
+        witnesses = 1 + MESH_F32_WITNESSES if case["label"] == "finetune f32" else 0
+        runs = []
+        for i in range(1 + witnesses):  # the step, again, then on ulp-moved inputs
+            state = init_multi_state(case["nets"], 1e-5, seed=SEED, device=dev, dtype=dtype)
+            if i == 0:
+                torch.save({k: v.cpu() for k, v in state.nets.state_dict().items()},
+                           os.path.join(root, case["snapshot"]))
+            batch = [t.to(dev) for t in (finetune if case["step"] == "finetune" else joint)]
+            loss, _ = step(state, *(ulp_moved(batch, SEED + 10 + i) if i > 1 else batch))
+            torch.cuda.synchronize()
+            runs.append({"loss": loss.item(),
+                         "grads": {n: p.grad.double().cpu() for n, p in state.nets.named_parameters()},
+                         "stats": {n: v.double().cpu() for n, v in state.nets.named_buffers()
+                                   if n.endswith(("running_mean", "running_var"))}})
+            del state, batch
+            torch.cuda.empty_cache()
+        single[case["label"]] = {**runs[0], "witnesses": [r["grads"] for r in runs]}
+        if witnesses:  # the kernels a rank's share of the batch changes, one process
+            names = {}
+            for b in (REAL_BATCH, REAL_BATCH // MESH_RANKS):
+                state = init_multi_state(case["nets"], 1e-5, seed=SEED, device=dev, dtype=dtype)
+                names[b] = card_kernel_names(lambda: step(state, *[t[:b].to(dev) for t in finetune]))
+                del state
+            short = {b: sorted({n.removeprefix("void ").split("<")[0].split("(")[0] for n in ns - names[other]})
+                     for (b, ns), other in zip(names.items(), reversed(names))}
+            print(f"  {case['label']}, one process: {len(names[REAL_BATCH])} kernels by name at b{REAL_BATCH}, "
+                  f"{len(names[REAL_BATCH // MESH_RANKS])} at b{REAL_BATCH // MESH_RANKS}; only at b{REAL_BATCH}: "
+                  f"{short[REAL_BATCH]}; only at b{REAL_BATCH // MESH_RANKS}: {short[REAL_BATCH // MESH_RANKS]}",
+                  flush=True)
+            torch.cuda.empty_cache()
+    with open(os.path.join(root, "cases.json"), "w") as f:
+        json.dump({"device": str(dev), "cases": cases}, f)
+    t0 = time.perf_counter()
+    ranks = run_mesh_ranks(root)
+    print(f"  {MESH_RANKS} gloo ranks on the one card: {time.perf_counter() - t0:.1f} s wall incl. start-up",
+          flush=True)
+    failures = []
+    for case in cases:
+        label = case["label"]
+        got, want = ranks[0][label], single[label]
+        loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+        stats_rel = _rel_max(got["stats"], want["stats"])
+        equal = len({r[label]["digest"] for r in ranks}) == 1
+        if not equal:
+            failures.append(f"{label}: the ranks' parameters differ")
+        if case["dtype"] == "float64":
+            worst = f64_ratio(got["grads"], want["grads"])
+            print(f"  {label} on {MESH_RANKS} ranks vs one process on the full batch: loss rel {loss_rel:.3e}; "
+                  f"BN statistics rel {stats_rel:.3e}; worst gradient error over its net's largest: "
+                  f"{'; '.join(f'{net} {r:.3e}' for net, r in sorted(worst.items()))} (bound "
+                  f"{MESH_F64_REL_TOL:.0e} each); ranks' parameters bit-equal: {equal}  [{card}]", flush=True)
+            failures += [f"{label}: {what} {r:.3e}" for what, r in
+                         [("loss rel", loss_rel), ("statistics rel", stats_rel)] + sorted(worst.items())
+                         if not r <= MESH_F64_REL_TOL]
+            continue
+        bf16 = case["dtype"] == "bfloat16"
+        if bf16:
+            ref, noise = single["joint f32"]["grads"], want["grads"]
+            report = []
+            for net in ("deq", "lin", "hal"):
+                dist, cos = net_distance(got["grads"], ref, net)
+                noise_dist, _ = net_distance(noise, ref, net)
+                bound = BF16_STEP_DEQ_TOL if net == "deq" else BF16_STEP_NOISE_FACTOR * noise_dist + 0.02
+                report.append(f"{net} {dist / bound:.3f} (distance {dist:.4f}, cos {cos:.4f}; one process "
+                              f"{noise_dist:.4f})")
+                failures += [f"{label}: {f}" for f in bf16_net_failures(net, got["grads"], ref, noise)]
+            grads = "; ".join(report)
+        else:
+            ratio = grad_bound_ratio(got["grads"], want["grads"])
+            worst = {}
+            for n, r in ratio.items():
+                worst[n.split(".")[0]] = max(worst.get(n.split(".")[0], (0.0, "")), (r, n))
+            grads = "; ".join(f"{net} {r:.3f} ({n})" for net, (r, n) in sorted(worst.items()))
+            if label == "finetune f32":
+                ref = single["finetune f64"]["grads"]
+                again = max(grad_bound_ratio(want["witnesses"][1], want["grads"]).values())
+                spread = max(max(grad_bound_ratio(w, want["grads"]).values()) for w in want["witnesses"][2:])
+                report = []
+                for net in sorted(worst):
+                    dist, cos = net_distance(got["grads"], ref, net)
+                    seen = [net_distance(w, ref, net)[0] for w in want["witnesses"]]
+                    bound = MESH_F32_SLACK * max(seen)
+                    report.append(f"{net} {dist:.3e} (cos {cos:.6f}; {dist / bound:.3f} of its bound; one process, "
+                                  f"again, on moved inputs {', '.join(f'{d:.3e}' for d in seen)})")
+                    if not dist <= bound:
+                        failures.append(f"{label}: {net} distance {dist:.3e} > {MESH_F32_SLACK} x {max(seen):.3e}")
+                grads += (f" (not held: the one-process step run again reads {again:.3f} from it, on inputs one ulp "
+                          f"apart up to {spread:.3f}); distance from the float64 step by net: " + "; ".join(report))
+            else:
+                failures += [f"{label}: {n} at {r:.3f} of phase 10's bound" for n, r in ratio.items()
+                             if not r <= 1]
+        loss_tol = BF16_STEP_LOSS_REL_TOL if bf16 else STEP_LOSS_REL_TOL
+        stats_tol = BF16_STATS_REL_TOL if bf16 else STEP_STATS_REL_TOL
+        print(f"  {label} on {MESH_RANKS} ranks vs one process on the full batch: loss rel {loss_rel:.3e} "
+              f"(bound {loss_tol}); BN statistics rel {stats_rel:.3e} (bound {stats_tol:.3g}); worst "
+              f"gradient ratio to the bound by net: {grads}; ranks' parameters bit-equal: {equal}; "
+              f"step {ranks[0][label]['step_ms']:.2f} ms wall (median of {MESH_TIMED_STEPS}; two processes "
+              f"sharing one card over gloo, which copies through the host: not a scaling figure)  [{card}]",
+              flush=True)
+        if not loss_rel <= loss_tol:
+            failures.append(f"{label}: loss rel {loss_rel:.3e}")
+        if not stats_rel <= stats_tol:
+            failures.append(f"{label}: BN statistics rel {stats_rel:.3e}")
+    if failures:
+        raise AssertionError("two ranks vs one process:\n  " + "\n  ".join(failures))
+    launches = {}
+    for r in ranks:
+        _add_counts(launches, r["launches"])
+    return launches, sum(r["rank_steps"] for r in ranks)
+
+
+def checkpoint_tensors(directory: str, step=None) -> tuple:
+    """(parameters, BatchNorm statistics) of the checkpoint of ``step`` (the
+    latest for None) under ``directory``, by net-prefixed name, as float64
+    CPU tensors."""
+    from singlehdr_tpu_torch.train.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(directory)
+    saved = mgr.load(mgr.latest_step if step is None else step, "cpu")["nets"]
+    flat = {f"{net}.{k}": v.double() for net, sd in saved.items() for k, v in sd.items()}
+    stats = {k: v for k, v in flat.items() if k.endswith(("running_mean", "running_var"))}
+    return {k: v for k, v in flat.items() if k not in stats and not k.endswith("num_batches_tracked")}, stats
+
+
+def ulp_moved_checkpoint(src: str, dst: str, seed: int) -> None:
+    """The latest checkpoint under ``src`` written under ``dst`` with every
+    float tensor of its nets moved by one f32 ulp, up or down at random
+    (``ulp_moved``)."""
+    from singlehdr_tpu_torch.train.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(src)
+    payload = mgr.load(mgr.latest_step, "cpu")
+    keys = [(net, k) for net in sorted(payload["nets"]) for k, v in sorted(payload["nets"][net].items())
+            if v.is_floating_point()]
+    for (net, k), v in zip(keys, ulp_moved([payload["nets"][net][k] for net, k in keys], seed)):
+        payload["nets"][net][k] = v
+    os.makedirs(dst)
+    torch.save(payload, os.path.join(dst, os.path.basename(mgr.path(mgr.latest_step))))
+
+
+def mesh_clis(card: str, work: str, train_root: str, files: dict) -> tuple:
+    """Phase 15 (b): cli.joint_train (MESH_CLI_ITERATIONS steps, from phase
+    9's per-net checkpoints) and cli.finetune (one epoch of MESH_FT_STEPS
+    steps on phase 12's two pairs cut at MESH_FT_STRIDE, batches of
+    MESH_FT_BATCH, so that the epoch has no tail, which the mesh pads and
+    the meshless loop does not; from phase 9's joint checkpoint), each run
+    with --mesh 1 (a process group of one over NCCL, the mesh's collectives)
+    and without, against each other.  joint_train: every logged loss within
+    STEP_LOSS_REL_TOL, the step-1 checkpoints (one step, as phase 10) by
+    their parameters within phase 10's bound (the parameters' own max and
+    their net's largest) and BatchNorm statistics within STEP_STATS_REL_TOL,
+    and the final parameters within phase 10's bound.  finetune: the
+    epoch's logged loss, the final parameters and BatchNorm statistics each
+    within those bounds or MESH_CLI_SLACK times the farthest witness's
+    reading (MESH_CLI_WITNESSES: meshless runs from the joint checkpoint
+    moved by one ulp, ``ulp_moved_checkpoint``, or with cuDNN's
+    deterministic algorithms): Adam's first steps move each parameter by
+    about lr times the sign of its gradient, so a gradient within rounding
+    of zero moves a parameter 2 lr apart between two runs, and 15 steps
+    carry such differences on.  Both joint_train runs use one loader worker
+    and one prefetch producer, so that they train on the same batches (with
+    more, the order in which threads deliver samples differs between runs).
+    Returns the mesh runs' launches and steps."""
+    import functools
+
+    from singlehdr_tpu_torch.cli import convert_records, finetune, joint_train
+    from singlehdr_tpu_torch.ops import cuda as kernels
+    from singlehdr_tpu_torch.train.loop import LoopConfig
+
+    root, cwd = os.path.join(work, "mesh_clis"), os.getcwd()
+    ck = os.path.join(train_root, "checkpoints")
+    jnt = os.path.join(ck, "jnt")
+    witnesses = MESH_CLI_WITNESSES
+    records = os.path.join(root, "records")
+    n_records = convert_records.run(convert_records.build_parser().parse_args(
+        ["--dir", os.path.dirname(files["records"]), "--out", records, "--patch_stride", str(MESH_FT_STRIDE)]))
+    if n_records != MESH_FT_STEPS * MESH_FT_BATCH:
+        raise AssertionError(f"{n_records} records at stride {MESH_FT_STRIDE}, not "
+                             f"{MESH_FT_STEPS} x {MESH_FT_BATCH}")
+    for i, w in enumerate(w for w in witnesses if w.startswith("ulp")):
+        ulp_moved_checkpoint(jnt, os.path.join(root, f"jnt_{w}"), SEED + 20 + i)
+    runs = {
+        "joint_train": (joint_train, "jnt/loss", "jnt", MESH_CLI_ITERATIONS, ("", "1"), lambda out, src: [
+            "--dir", os.path.join(train_root, "hdr"), "--batch_size", str(TRAIN_BATCH), "--patch_size",
+            str(TRAIN_HW), "--workers", "1", "--log_every", "1", "--iterations", str(MESH_CLI_ITERATIONS),
+            "--deq_ckpt", os.path.join(ck, "deq"), "--lin_ckpt", os.path.join(ck, "lin"),
+            "--hal_ckpt", os.path.join(ck, "hal"), "--jnt_ckpt", out]),
+        "finetune": (finetune, "ref/loss", "ref", MESH_FT_STEPS, ("", "1", *witnesses), lambda out, src: [
+            "--records", records, "--epochs", "1", "--batch_size", str(MESH_FT_BATCH),
+            "--deq_ckpt", src, "--lin_ckpt", src, "--hal_ckpt", src, "--ref_ckpt", out]),
+    }
+    launches, n_steps, failures = {}, 0, []
+    one_producer = functools.partial(LoopConfig, prefetch_producers=1)
+    prev_config = joint_train.LoopConfig
+    joint_train.LoopConfig = one_producer
+    try:
+        for name, (cli, tag, unit, n, variants, argv) in runs.items():
+            got = {}
+            for variant in variants:
+                mesh = "1" if variant == "1" else ""
+                here = os.path.join(root, f"{name}_{'mesh1' if mesh else variant or 'meshless'}")
+                os.makedirs(here)
+                os.chdir(here)  # the CLIs write their run directories under the cwd
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                src = os.path.join(root, f"jnt_{variant}") if variant.startswith("ulp") else jnt
+                with cudnn_deterministic() if variant == "cudnn_det" else contextlib.nullcontext():
+                    state = cli.run(cli.build_parser().parse_args(
+                        argv(os.path.join(here, unit), src) + (["--mesh", mesh] if mesh else [])))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                if mesh:
+                    if state.mesh is None or state.mesh.world != 1:
+                        raise AssertionError(f"{name} --mesh 1 trained without a mesh of one")
+                    _add_counts(launches, kernels.launch_counts_by_dtype())
+                    n_steps += n
+                params, stats = checkpoint_tensors(os.path.join(here, unit))
+                got[variant] = {"losses": logged_losses(here, tag), "params": params, "stats": stats,
+                                "step": state.step, "wall": wall}
+                if name == "joint_train":
+                    got[variant]["first"] = checkpoint_tensors(os.path.join(here, unit), 1)
+
+            def readings(run: dict) -> dict:
+                plain = got[""]
+                return {"losses": max(abs(a - b) / abs(b) for a, b in zip(run["losses"], plain["losses"])),
+                        "params": max(grad_bound_ratio(run["params"], plain["params"]).values()),
+                        "stats": _rel_max(run["stats"], plain["stats"]),
+                        "stats_at": max(plain["stats"], key=lambda k: float(
+                            (run["stats"][k] - plain["stats"][k]).abs().max() / plain["stats"][k].abs().max()))}
+
+            plain, meshed = got[""], got["1"]
+            read = readings(meshed)
+            moved_max = max((meshed["params"][k] - v).abs().max().item() for k, v in plain["params"].items())
+            bounds = {"losses": STEP_LOSS_REL_TOL, "params": 1.0, "stats": STEP_STATS_REL_TOL}
+            if name == "joint_train":
+                first_ratio = max(grad_bound_ratio(meshed["first"][0], plain["first"][0]).values())
+                first_stats = _rel_max(meshed["first"][1], plain["first"][1])
+                held = (f"after step 1: parameters {first_ratio:.3e} of phase 10's bound, BN statistics rel "
+                        f"{first_stats:.3e} (bound {STEP_STATS_REL_TOL}); final parameters "
+                        f"{read['params']:.3e} of phase 10's bound, BN statistics rel {read['stats']:.3e} "
+                        f"(not held)")
+                if not (first_ratio <= 1 and first_stats <= STEP_STATS_REL_TOL):
+                    failures.append(f"{name} after step 1: parameters {first_ratio:.3e}, statistics "
+                                    f"{first_stats:.3e}")
+                bounds["stats"] = float("inf")
+            else:
+                seen = [readings(got[w]) for w in witnesses]
+                bounds = {k: max(b, MESH_CLI_SLACK * max(r[k] for r in seen)) for k, b in bounds.items()}
+                held = (f"final parameters {read['params']:.3e} of phase 10's bound, BN statistics rel "
+                        f"{read['stats']:.3e} ({read['stats_at']}); the witnesses read "
+                        + "; ".join(f"{w}: losses {r['losses']:.3e}, parameters {r['params']:.3e}, statistics "
+                                    f"{r['stats']:.3e} ({r['stats_at']})" for w, r in zip(witnesses, seen))
+                        + f"; bounds {', '.join(f'{k} {b:.3e}' for k, b in bounds.items())}")
+            print(f"  {name} --mesh 1 (NCCL, a group of one) vs without: {meshed['step']} / {plain['step']} "
+                  f"steps; logged losses {[round(v, 5) for v in meshed['losses']]} vs "
+                  f"{[round(v, 5) for v in plain['losses']]}, worst rel {read['losses']:.3e}; {held}; max|dp| "
+                  f"{moved_max:.3e} ({moved_max / 1e-5:.2f} lr); wall {meshed['wall']:.1f} / "
+                  f"{plain['wall']:.1f} s incl. set-up  [{card}]", flush=True)
+            if not (meshed["step"] == plain["step"] == n and len(meshed["losses"]) == len(plain["losses"]) > 0):
+                failures.append(f"{name}: steps {meshed['step']} / {plain['step']}, losses "
+                                f"{meshed['losses']} / {plain['losses']}")
+            failures += [f"{name}: {k} {read[k]:.3e} > {b:.3e}" for k, b in bounds.items() if not read[k] <= b]
+    finally:
+        joint_train.LoopConfig = prev_config
+        os.chdir(cwd)
+    if failures:
+        raise AssertionError("--mesh 1 vs meshless:\n  " + "\n  ".join(failures))
+    return launches, n_steps
+
+
+def mesh_timings(dev, card: str) -> tuple:
+    """Phase 15 (c): the joint step at batch 16, 256^2 (f32, bf16) on a mesh
+    of one over NCCL against the meshless step, in turns (plain, mesh, mesh,
+    plain; synchronised rounds), and the gradient all-reduce alone (CUDA
+    events).  Returns the mesh steps' launches and steps."""
+    import torch.distributed as dist
+
+    from singlehdr_tpu_torch.models.vgg16 import Vgg16Features
+    from singlehdr_tpu_torch.ops import cuda as kernels
+    from singlehdr_tpu_torch.parallel import initialize_multihost, make_mesh, replicate
+    from singlehdr_tpu_torch.parallel.mesh import all_reduce_gradients
+    from singlehdr_tpu_torch.train import steps
+    from singlehdr_tpu_torch.train.state import init_multi_state
+
+    device = initialize_multihost(None, 1, 0, dev, mesh=True)
+    launches, n_steps = {}, 0
+    try:
+        if device.type == "cuda" and dist.get_backend() != "nccl":
+            raise AssertionError(f"a CUDA mesh took {dist.get_backend()}, not NCCL")
+        mesh = make_mesh(1, device=device)
+        vgg = Vgg16Features().to(dev)
+        batch = joint_batch(dev, TRAIN_BATCH, TRAIN_HW, SEED + 6)
+        for dtype in (torch.float32, torch.bfloat16):
+            states = {"plain": init_multi_state(("deq", "lin", "hal"), 1e-5, seed=SEED, device=dev, dtype=dtype),
+                      "mesh": replicate(mesh, init_multi_state(("deq", "lin", "hal"), 1e-5, seed=SEED,
+                                                               device=dev, dtype=dtype))}
+            step = steps.make_joint_train_step(vgg, dtype)
+            times = {"plain": [], "mesh": []}
+            for which in ("plain", "mesh", "mesh", "plain"):
+                state = states[which]
+                if which == "mesh":
+                    kernels.reset_launches()
+                t = step_times(lambda: step(state, *batch), REMAT_ROUNDS, REMAT_CALLS)
+                if which == "mesh":
+                    _add_counts(launches, kernels.launch_counts_by_dtype())
+                    n_steps += 1 + REMAT_ROUNDS * REMAT_CALLS
+                times[which].append(t["wall_ms"])
+            params = list(states["mesh"].nets.parameters())
+            n_bytes = sum(p.numel() * p.element_size() for p in params)
+            reduce_ms = cuda_ms(lambda: all_reduce_gradients(mesh, params), 10)
+            print(f"  joint step b{TRAIN_BATCH} @ {TRAIN_HW}^2 {str(dtype).removeprefix('torch.')}: meshless "
+                  f"{times['plain'][0]:.2f}, {times['plain'][1]:.2f} ms; --mesh 1 (NCCL) {times['mesh'][0]:.2f}, "
+                  f"{times['mesh'][1]:.2f} ms (median of {REMAT_ROUNDS} x {REMAT_CALLS} synchronised calls, in "
+                  f"turns); the gradient all-reduce alone {reduce_ms:.3f} ms for {n_bytes / 2**20:.1f} MiB of "
+                  f"f32 gradients (CUDA events, mean of 10)  [{card}]", flush=True)
+            del states
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return launches, n_steps
 
 
 def main() -> int:
@@ -2241,8 +2964,8 @@ def main() -> int:
 
 
 def run_training_and_real_paths(dev, card: str, report: dict, served: dict, work: str) -> int:
-    """Phases 9-14 and the last two lines, with phase 9's and phase 12's
-    files and checkpoints under ``work`` until phases 13 and 14 have read
+    """Phases 9-15 and the last two lines, with phase 9's and phase 12's
+    files and checkpoints under ``work`` until phases 13-15 have read
     them."""
     train_root = os.path.join(work, "train")
     os.makedirs(train_root)
@@ -2250,7 +2973,7 @@ def run_training_and_real_paths(dev, card: str, report: dict, served: dict, work
     train_launches = joint_training(card, train_root)
 
     phase("10 one-step parity, card vs CPU")
-    step_parity(dev)
+    cpu_grads = step_parity(dev)
 
     phase("11 training timings")
     step_ms = {dtype: train_timings(dev, card, report["apply_rf_bwd"], dtype)
@@ -2271,18 +2994,37 @@ def run_training_and_real_paths(dev, card: str, report: dict, served: dict, work
 
     phase("14 remat: steps and entry points")
     t0 = time.perf_counter()
+    remat_bf16_parity(dev, card, cpu_grads)
     remat_launches, remat_n = remat_steps(dev, card, files)
     remat_step_launches = {k: dict(v) for k, v in remat_launches.items()}
     _add_counts(remat_launches, remat_clis(card, work, train_root, files))
     print(f"  phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    phase("15 multi-device: two ranks on the card, --mesh 1 over NCCL")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh_launches, mesh_steps = mesh_two_ranks(dev, card, files, work)
+    for launches, n in (mesh_clis(card, work, train_root, files), mesh_timings(dev, card)):
+        _add_counts(mesh_launches, launches)
+        mesh_steps += n
+    path_kernels = {k: sum(mesh_launches.get(k, {}).values()) for k in SOURCES}
+    print(f"  multi-device path launches {path_kernels} over {mesh_steps} rank-steps; phase 15: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not (path_kernels["apply_rf"] > 0 and path_kernels["apply_rf_bwd"] > 0
+            and not any(path_kernels[k] for k in ("unet_stage2", "lin_feature_stem", "encoder_stage2"))):
+        raise AssertionError(f"the multi-device path's launches: {path_kernels}")
+
     # launches: the serving paths' (phase 4, both dtypes), the training
     # paths' (phase 9, both dtypes), the HDR-Real paths' (phase 12), the
-    # interop path's (phase 13) and the remat path's (phase 14, its steps and
-    # CLIs), of each (kernel, dtype); per serving batch of that dtype's
-    # pipeline, per training step, per finetune step (f32 and bf16 runs),
-    # evaluate batch, whole photo and tile (the tiled runs less their invCRF
-    # views), and per phase 14 step (its CLIs not included)
+    # interop path's (phase 13), the remat path's (phase 14, its steps and
+    # CLIs) and the multi-device path's (phase 15: the ranks' steps, the
+    # --mesh 1 CLI runs and the mesh steps timed; not the meshless runs they
+    # are compared with), of each (kernel, dtype); per serving batch of that
+    # dtype's pipeline, per training step, per finetune step (f32 and bf16
+    # runs), evaluate batch, whole photo and tile (the tiled runs less their
+    # invCRF views), per phase 14 step (its CLIs not included) and per
+    # multi-device rank-step (a step on one rank; the joint_train feed's
+    # captures count K1 too)
     train_steps = TRAIN_STEPS + BF16_JOINT_STEPS
     kernels = []
     for name, r in report.items():
@@ -2297,12 +3039,13 @@ def run_training_and_real_paths(dev, card: str, report: dict, served: dict, work
         views = N_PHOTOS * view_launches[base].get(dt, 0)
         n_interop = interop_launches[base].get(dt, 0)
         n_remat = remat_launches.get(base, {}).get(dt, 0)
+        n_mesh = mesh_launches.get(base, {}).get(dt, 0)
         entry = {
             "name": name, "dtype": dt, "route": "cuda", "source": SOURCES[base][0],
             "replaces": SOURCES[base][1],
-            "launches": n_serve + n_train + sum(real.values()) + n_interop + n_remat,
+            "launches": n_serve + n_train + sum(real.values()) + n_interop + n_remat + n_mesh,
             "launches_by_path": {"serving": n_serve, "training": n_train, **real, "interop": n_interop,
-                                 "remat": n_remat},
+                                 "remat": n_remat, "multi_device": n_mesh},
             "launches_per_batch": {
                 **{f"serving_{d}": serve[d] / batches[d] for d in serve},
                 "training_step": n_train / train_steps,
@@ -2312,7 +3055,8 @@ def run_training_and_real_paths(dev, card: str, report: dict, served: dict, work
                 "infer_image": real["infer_whole"] / real_units["infer_image"],
                 "tiled_tile": (real["infer_tiled"] - views) / real_units["tiled_tile"],
                 "interop_image": n_interop / INTEROP_IMAGES,
-                "remat_step": remat_step_launches.get(base, {}).get(dt, 0) / remat_n},
+                "remat_step": remat_step_launches.get(base, {}).get(dt, 0) / remat_n,
+                "multi_device_step": n_mesh / mesh_steps},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": "operations" if r["ops_bound_ms"] >= r["bound_ms"] / 2 else "bytes",
@@ -2329,4 +3073,6 @@ def run_training_and_real_paths(dev, card: str, report: dict, served: dict, work
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:  # phase 15's rank processes
+        sys.exit(mesh_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

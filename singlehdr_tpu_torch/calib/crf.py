@@ -119,6 +119,10 @@ class CrfBank:
     test_crf: np.ndarray       # [n_test, 1024]
     test_invcrf: np.ndarray    # [n_test, 1024]
 
+    @property
+    def n_train(self) -> int:
+        return self.train_crf.shape[0]
+
 
 _BANK_CACHE: dict = {}
 

@@ -2,8 +2,17 @@
 
 from __future__ import annotations
 
-import torch
+import contextlib
 
+import torch
+import torch.distributed as dist
+
+from singlehdr_tpu_torch.parallel.mesh import (
+    SPATIAL_UNSUPPORTED,
+    initialize_multihost,
+    make_mesh,
+    parse_mesh,
+)
 from singlehdr_tpu_torch.precision import use_full_f32
 
 
@@ -28,3 +37,39 @@ def add_dtype_arg(parser) -> None:
     losses and the perceptual VGG stay f32), as the JAX CLIs take it."""
     parser.add_argument("--dtype", choices=tuple(DTYPES), default="float32",
                         help="compute dtype of the nets (default float32)")
+
+
+def add_mesh_args(parser) -> None:
+    """The JAX training CLIs' multi-device flags.  One port process drives
+    one device: a data mesh of D is D processes, each started with its
+    ``--process_id``."""
+    parser.add_argument("--mesh", type=str, default="",
+                        help="'D' or 'D,S': data(,spatial) mesh axes over devices")
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="host:port of process 0 for multi-host runs")
+    parser.add_argument("--num_processes", type=int, default=1)
+    parser.add_argument("--process_id", type=int, default=0)
+
+
+@contextlib.contextmanager
+def process_mesh(args, device: torch.device):
+    """Within the block, (this process's device, its data mesh or None) from
+    ``add_mesh_args``' flags: joins the run's process group
+    (``initialize_multihost``; NCCL on CUDA, gloo on the CPU), makes the
+    mesh, and leaves the group at the end.  A spatial axis, or more than one
+    process without a mesh (each would train the whole batch and write the
+    same checkpoints), raises before any process group is made."""
+    spec = parse_mesh(args.mesh)
+    if spec is not None and spec[1] != 1:
+        raise ValueError(SPATIAL_UNSUPPORTED)
+    if spec is None and args.num_processes > 1:
+        raise ValueError(f"--num_processes {args.num_processes} needs --mesh {args.num_processes}: "
+                         "the processes train one data mesh, one device each")
+    rank_device = initialize_multihost(args.coordinator, args.num_processes, args.process_id,
+                                       device, mesh=spec is not None)
+    try:
+        device = rank_device or device
+        yield device, None if spec is None else make_mesh(spec[0], device=device)
+    finally:
+        if rank_device is not None:
+            dist.destroy_process_group()

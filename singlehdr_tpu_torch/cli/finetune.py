@@ -10,9 +10,11 @@ lr 1e-5, resuming from ``--ref_ckpt`` when it holds a checkpoint:
 Trains on CUDA, f32 with TF32 off; ``--device cpu`` trains on the CPU;
 ``--dtype bfloat16`` computes the nets in bf16 (f32 parameters and loss);
 ``--remat`` recomputes each net's forward in the backward instead of keeping
-its activations (``train.steps``).  The JAX CLI's ``--mesh``,
-``--coordinator``, ``--num_processes`` and ``--process_id`` (multi-device)
-have no counterpart yet.
+its activations (``train.steps``); ``--mesh D`` trains on a data mesh of D
+processes, one a device, each started with ``--num_processes D --process_id
+r --coordinator host:port`` (``parallel``): ``--batch_size`` is the global
+batch, and a short tail batch is padded to a multiple of D by repeating its
+last sample, as in JAX (so with ``--mesh 1`` too).
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from __future__ import annotations
 import argparse
 import os
 
-from singlehdr_tpu_torch.cli import DTYPES, add_dtype_arg, cli_device
+from singlehdr_tpu_torch.cli import (DTYPES, add_dtype_arg, add_mesh_args, cli_device,
+                                     process_mesh)
 from singlehdr_tpu_torch.data.real import HdrRealPipeline
 from singlehdr_tpu_torch.train.checkpoint import restore_pretrained_subnets
 from singlehdr_tpu_torch.train.loop import run_real_finetune
@@ -50,12 +53,17 @@ def build_parser() -> argparse.ArgumentParser:
     add_dtype_arg(p)
     p.add_argument("--remat", action="store_true",
                    help="recompute each net's forward in the backward (less memory, more work)")
+    add_mesh_args(p)
     return p
 
 
 def run(args):
     """Finetune; returns the final ``TrainState``."""
-    device = cli_device(args.device)
+    with process_mesh(args, cli_device(args.device)) as (device, mesh):
+        return _run(args, device, mesh)
+
+
+def _run(args, device, mesh):
     dtype = DTYPES[args.dtype]
     pipeline = HdrRealPipeline(args.records, batch_size=args.batch_size, training=True)
     state = init_multi_state(("deq", "lin", "hal", "ref"), args.lr, seed=INIT_SEED, device=device,
@@ -69,6 +77,7 @@ def run(args):
         epochs=args.epochs,
         ckpt_dir=args.ref_ckpt,
         log_dir=create_run_dirs(os.getcwd(), "ref")["tensorboard"],
+        mesh=mesh,
     )
 
 

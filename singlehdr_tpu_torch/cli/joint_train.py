@@ -11,7 +11,9 @@ Trains on CUDA, f32 with TF32 off; ``--device cpu`` trains on the CPU;
 ``--dtype bfloat16`` computes the nets in bf16 (f32 parameters and losses;
 the perceptual VGG stays f32, as in the JAX CLI); ``--remat`` recomputes each
 net's forward in the backward instead of keeping its activations
-(``train.steps``).
+(``train.steps``); ``--mesh D`` trains on a data mesh of D processes, one a
+device, each started with ``--num_processes D --process_id r --coordinator
+host:port`` (``parallel``); ``--batch_size`` is the global batch.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from __future__ import annotations
 import argparse
 import os
 
-from singlehdr_tpu_torch.cli import DTYPES, add_dtype_arg, cli_device
+from singlehdr_tpu_torch.cli import (DTYPES, add_dtype_arg, add_mesh_args, cli_device,
+                                     process_mesh)
 from singlehdr_tpu_torch.data.synth import get_train_dataset
 from singlehdr_tpu_torch.models.vgg16 import Vgg16Features
 from singlehdr_tpu_torch.train.checkpoint import restore_pretrained_subnets
@@ -55,12 +58,17 @@ def build_parser() -> argparse.ArgumentParser:
     add_dtype_arg(p)
     p.add_argument("--remat", action="store_true",
                    help="recompute each net's forward in the backward (less memory, more work)")
+    add_mesh_args(p)
     return p
 
 
 def run(args):
     """Train; returns the final ``TrainState``."""
-    device = cli_device(args.device)
+    with process_mesh(args, cli_device(args.device)) as (device, mesh):
+        return _run(args, device, mesh)
+
+
+def _run(args, device, mesh):
     dtype = DTYPES[args.dtype]
     cfg = LoopConfig(batch_size=args.batch_size, iterations=args.iterations, use_jpeg=args.jpeg,
                      n_workers=args.workers, log_every=args.log_every,
@@ -82,6 +90,7 @@ def run(args):
         batch_to_args=lambda b: (b["ldr"], b["jpeg"], b["clipped_hdr_t"], b["hdr_t"], b["mask"],
                                  b["invcrf"]),
         image_taps=("c_pred", "b_pred", "a_pred", "alpha"),
+        mesh=mesh,
     )
 
 

@@ -6,6 +6,9 @@
 
 Trains on CUDA, f32 with TF32 off; ``--device cpu`` trains on the CPU;
 ``--dtype bfloat16`` computes the nets in bf16 (f32 parameters and losses).
+``--mesh D`` trains on a data mesh of D processes, one a device, each
+started with ``--num_processes D --process_id r --coordinator host:port``
+(``parallel``); ``--batch_size`` is the global batch.
 """
 
 from __future__ import annotations
@@ -13,7 +16,8 @@ from __future__ import annotations
 import argparse
 import os
 
-from singlehdr_tpu_torch.cli import DTYPES, add_dtype_arg, cli_device
+from singlehdr_tpu_torch.cli import (DTYPES, add_dtype_arg, add_mesh_args, cli_device,
+                                     process_mesh)
 from singlehdr_tpu_torch.data.synth import get_train_dataset
 from singlehdr_tpu_torch.models.vgg16 import Vgg16Features
 from singlehdr_tpu_torch.train import steps as steps_mod
@@ -48,11 +52,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; fails without a card) or cpu")
     add_dtype_arg(p)
+    add_mesh_args(p)
     return p
 
 
 def run(args) -> None:
-    device = cli_device(args.device)
+    with process_mesh(args, cli_device(args.device)) as (device, mesh):
+        _run(args, device, mesh)
+
+
+def _run(args, device, mesh) -> None:
     dtype = DTYPES[args.dtype]
     cfg = LoopConfig(batch_size=args.batch_size, iterations=args.iterations, use_jpeg=args.jpeg,
                      n_workers=args.workers, log_every=args.log_every,
@@ -81,6 +90,7 @@ def run(args) -> None:
             log_dir=create_run_dirs(os.getcwd(), name)["tensorboard"],
             batch_to_args=batch_to_args,
             image_taps=taps,
+            mesh=mesh,
         )
 
 

@@ -68,6 +68,26 @@ class ProductDataset:
         return self._len
 
 
+class CachedDataset:
+    """Materializes a dataset into RAM once (reference MemDataset,
+    dataset.py:141-154), lazily per index."""
+
+    def __init__(self, inner: SizedDataset, eager: bool = False):
+        self._inner = inner
+        self._cache: dict[int, Any] = {}
+        if eager:
+            for i in range(len(inner)):
+                self._cache[i] = inner[i]
+
+    def __getitem__(self, idx: int) -> Any:
+        if idx not in self._cache:
+            self._cache[idx] = self._inner[idx]
+        return self._cache[idx]
+
+    def __len__(self) -> int:
+        return len(self._inner)
+
+
 class ArrayDataset:
     """Wraps an array-like so each row is an item."""
 

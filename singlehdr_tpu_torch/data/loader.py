@@ -7,17 +7,22 @@ workers materializing samples into a bounded queue.  Threads (not processes)
 suffice because the heavy lifting — cv2 decode/resize — releases the GIL, and
 they avoid pickling 512^2 float32 patches across process boundaries.  The
 upload to the card is ``train.loop.SynthBatchPipeline``'s.
+
+``DeviceFeeder`` keeps batches moved to the device in flight, by default
+this rank's share of each (``parallel.shard_batch``).
 """
 
 from __future__ import annotations
 
+import functools
 import queue
 import threading
-from typing import Any, Optional
+from typing import Any, Callable, Iterator, Optional
 
 import numpy as np
 
 from singlehdr_tpu_torch.data.datasets import SizedDataset
+from singlehdr_tpu_torch.parallel.mesh import shard_batch
 
 
 class RandomSampleLoader:
@@ -93,6 +98,85 @@ class RandomSampleLoader:
                     pass
             for t in self._threads:
                 t.join(timeout=0.01)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class _FeederError:
+    """Carries the producer's exception across the queue."""
+
+    def __init__(self, error: BaseException):
+        self.error = error
+
+
+class DeviceFeeder:
+    """Keeps ``depth`` ready-to-train device batches in flight.
+
+    ``transform`` runs on the host batch (e.g. the JPEG round-trip);
+    ``put_fn`` moves it to the device, by default this rank's
+    ``shard_batch`` on ``mesh``.  An exception in ``next_host_batch``,
+    ``transform`` or ``put_fn`` ends the producer and is raised by the next
+    ``__next__`` (the JAX package's feeder thread dies on one and leaves its
+    consumer blocked)."""
+
+    def __init__(
+        self,
+        next_host_batch: Callable[[], Any],
+        put_fn: Optional[Callable[[Any], Any]] = None,
+        transform: Optional[Callable[[Any], Any]] = None,
+        depth: int = 2,
+        mesh=None,
+    ):
+        if put_fn is None:
+            if mesh is None:
+                raise ValueError("DeviceFeeder needs a put_fn or a mesh")
+            put_fn = functools.partial(shard_batch, mesh)
+        self._next = next_host_batch
+        self._put = put_fn
+        self._transform = transform or (lambda x: x)
+        self._q: "queue.Queue[Any]" = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True, name="feeder")
+        self._thread.start()
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                item = self._put(self._transform(self._next()))
+            except Exception as e:  # re-raised by __next__ in the consumer
+                item = _FeederError(e)
+            while not self._stop.is_set():
+                try:
+                    self._q.put(item, timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            if isinstance(item, _FeederError):
+                return
+
+    def __iter__(self) -> Iterator[Any]:
+        return self
+
+    def __next__(self) -> Any:
+        item = self._q.get()
+        if isinstance(item, _FeederError):
+            raise item.error
+        return item
+
+    def close(self) -> None:
+        """Stop the producer and join it."""
+        self._stop.set()
+        while self._thread.is_alive():
+            try:  # unblock the producer if it is waiting on a full queue
+                while True:
+                    self._q.get_nowait()
+            except queue.Empty:
+                pass
+            self._thread.join(timeout=0.01)
 
     def __enter__(self):
         return self

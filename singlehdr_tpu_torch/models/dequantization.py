@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from singlehdr_tpu_torch.models.layers import at_least_f32
 from singlehdr_tpu_torch.models.unet import ResidualUNet
 
 
@@ -19,4 +20,4 @@ class DequantizationNet(nn.Module):
 
     def forward(self, ldr: torch.Tensor) -> torch.Tensor:
         res = self.unet(ldr)
-        return (ldr.to(res.dtype) + torch.tanh(res)).float()
+        return at_least_f32(ldr.to(res.dtype) + torch.tanh(res))

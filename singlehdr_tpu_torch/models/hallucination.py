@@ -26,6 +26,7 @@ from singlehdr_tpu_torch.models.layers import (
     BatchNorm,
     Conv2d,
     UpsampleConv,
+    at_least_f32,
     cast_param,
 )
 from singlehdr_tpu_torch.ops.color import VGG_MEAN_BGR, vgg_preprocess
@@ -124,4 +125,4 @@ class HallucinationNet(nn.Module):
             x = getattr(self, f"dec{i}")(x)
             x = getattr(self, f"skip{i}")(x, skips[i - 1])
         x = torch.relu(self.head_bn(self.head_conv(x)))
-        return torch.relu(self.skip0(x, bgr)).float()  # BGR residual
+        return at_least_f32(torch.relu(self.skip0(x, bgr)))  # BGR residual

@@ -22,6 +22,10 @@ statistics reduced in f32) and returns its input's dtype, as Flax's does, and
 in train mode in a narrow dtype is composed as Flax's, so that its backward
 rounds where JAX's does.  One f32 state_dict serves every dtype.
 
+On a data mesh (``bind_mesh``, which each train step of a replicated state
+calls) train-mode BatchNorm takes its batch statistics over every rank's
+batch, as Flax's do over a batch sharded on a JAX mesh.
+
 Module attribute names follow the Flax module names, so state_dict keys are
 the JAX parameter paths with dots (see ``convert.py``).
 """
@@ -36,6 +40,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from singlehdr_tpu_torch.ops.cuda.conv_gemm import cached_on
+from singlehdr_tpu_torch.parallel.mesh import global_var_mean
 from singlehdr_tpu_torch.ops.resize import resize_bilinear_x2, same_pads
 
 BN_EPSILON = 1e-3
@@ -116,17 +121,24 @@ class Dense(nn.Module):
                         cast_param(self, "bias", self.dtype))
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in f32, or as it is where its dtype is wider (float64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 class BatchNorm(nn.Module):
     """Keras BatchNormalization over dim 1 of NCHW (or [b, c]) tensors, in the
     compute dtype: the input is cast to ``dtype``, normalised in f32 with the
     f32 parameters, and returned in ``dtype``.  In train mode the running
     statistics move once a forward, unless ``update_stats`` is off
-    (``running_stats_frozen``)."""
+    (``running_stats_frozen``).  With a ``mesh`` (``bind_mesh``) the batch
+    statistics in train mode are the global batch's."""
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         self.update_stats = True
+        self.mesh = None
         self.weight = nn.Parameter(torch.empty(channels))
         self.bias = nn.Parameter(torch.empty(channels))
         self.register_buffer("running_mean", torch.empty(channels))
@@ -139,7 +151,7 @@ class BatchNorm(nn.Module):
                 x, self.running_mean, self.running_var, self.weight, self.bias,
                 False, BN_MOMENTUM, BN_EPSILON,
             )
-        if self.dtype != torch.float32:
+        if self.mesh is not None or self.dtype != torch.float32:
             return self._train_as_flax(x)
         # Flax/Keras keep the BIASED batch variance in the running average;
         # torch's own update would store the unbiased one (n / (n - 1)).  The
@@ -152,20 +164,24 @@ class BatchNorm(nn.Module):
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, BN_EPSILON)
 
     def _train_as_flax(self, x: torch.Tensor) -> torch.Tensor:
-        """Train mode in a narrow dtype, composed as Flax's BatchNorm is: the
-        batch statistics from one f32 cast of ``x``, the normalisation in f32
-        from another, rounded once.  Autograd then rounds the gradient of each
-        cast to the compute dtype and sums the two in it, where JAX's backward
-        does.  (Flax takes the variance as E[x^2] - E[x]^2; the two-pass
-        variance here differs from it only in f32 rounding.)"""
+        """Train mode composed as Flax's BatchNorm is: the batch statistics
+        from one cast of ``x`` to at least f32, the normalisation in that
+        precision from another, rounded once.  In a narrow dtype autograd
+        then rounds the gradient of each cast to the compute dtype and sums
+        the two in it, where JAX's backward does.  (Flax takes the variance
+        as E[x^2] - E[x]^2; the two-pass variance here differs from it only
+        in rounding.)  On a data mesh the statistics are the global batch's
+        (``global_var_mean``: two passes of all-reduced sums,
+        differentiable)."""
         dims = (0,) + tuple(range(2, x.dim()))
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        var, mean = torch.var_mean(x.float(), dim=dims, unbiased=False)
+        var, mean = (torch.var_mean(at_least_f32(x), dim=dims, unbiased=False) if self.mesh is None
+                     else global_var_mean(at_least_f32(x), dims, self.mesh))
         if self.update_stats:
             with torch.no_grad():  # the biased variance, as Flax keeps it
                 self._update_running(mean, var)
         mul = torch.rsqrt(var + BN_EPSILON) * self.weight
-        y = (x.float() - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        y = (at_least_f32(x) - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(self.dtype)
 
     def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
@@ -192,6 +208,14 @@ def running_stats_frozen(module: nn.Module):
     finally:
         for m in bns:
             m.update_stats = True
+
+
+def bind_mesh(module: nn.Module, mesh) -> None:
+    """Every BatchNorm layer of ``module`` takes its train-mode statistics
+    over ``mesh`` (a ``parallel.DataMesh``), or over its own input for None."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.mesh = mesh
 
 
 def _glorot_(w: torch.Tensor, generator: torch.Generator) -> None:

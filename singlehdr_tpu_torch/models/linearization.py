@@ -20,7 +20,7 @@ import torch
 import torch.nn as nn
 
 from singlehdr_tpu_torch.calib import load_inverse_emor
-from singlehdr_tpu_torch.models.layers import BatchNorm, Conv2d, Dense
+from singlehdr_tpu_torch.models.layers import BatchNorm, Conv2d, Dense, at_least_f32
 from singlehdr_tpu_torch.ops.cuda.conv_gemm import cached_on
 from singlehdr_tpu_torch.ops.cuda.lin_stem_cuda import lin_feature_stem
 from singlehdr_tpu_torch.ops.curves import decode_invcrf, monotonic_rf
@@ -116,5 +116,5 @@ class LinearizationNet(nn.Module):
         )
 
     def forward(self, ldr: torch.Tensor) -> torch.Tensor:
-        w = self.pca_head(self.crf_feature_net(ldr).float())
+        w = self.pca_head(at_least_f32(self.crf_feature_net(ldr)))
         return monotonic_rf(decode_invcrf(w, self.g0, self.hinv))

@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from singlehdr_tpu_torch.models.layers import at_least_f32
 from singlehdr_tpu_torch.models.unet import ResidualUNet
 
 
@@ -19,4 +20,4 @@ class RefinementNet(nn.Module):
 
     def forward(self, abc: torch.Tensor) -> torch.Tensor:
         res = self.unet(abc)
-        return torch.relu(abc[:, 0:3].to(res.dtype) + res).float()
+        return at_least_f32(torch.relu(abc[:, 0:3].to(res.dtype) + res))

@@ -10,6 +10,11 @@ t as float32, the HDR patch as float16, as in JAX) goes to the card in one
 copy from pinned memory; the capture simulation (K1 for the CRF) runs there.
 Producer threads prepare batches ahead of the step, so the JPEG round trip of
 the next batch overlaps the current step.
+
+Both loops take JAX's ``mesh`` (a ``parallel.DataMesh``): they restore the
+checkpoint on every rank, replicate rank 0's state, train each rank on its
+share of the global batch, and write checkpoints and summaries on rank 0
+only.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 
 from singlehdr_tpu_torch.data.jpeg import jpeg_roundtrip_batch
 from singlehdr_tpu_torch.data.loader import RandomSampleLoader
+from singlehdr_tpu_torch.parallel.mesh import local_rows, replicate
 from singlehdr_tpu_torch.ops.degradation import (
     jpeg_quality_ladder,
     loss_mask_from_levels,
@@ -210,21 +216,60 @@ class _Prefetcher:
                 t.join(timeout=0.1)
 
 
+def rank_feed(cfg: LoopConfig, mesh) -> LoopConfig:
+    """The loop config of one rank's feed on a data mesh: its share of
+    ``cfg.batch_size`` (the global batch, as in JAX) and its seed,
+    ``cfg.seed`` itself on rank 0 (a mesh of 1 draws what the meshless loop
+    draws) and one drawn from ``(cfg.seed, rank)`` on the others, so that no
+    two ranks draw the same samples, exposures, curves or noise."""
+    if mesh is None:
+        return cfg
+    if cfg.batch_size % mesh.world:
+        raise ValueError(f"batch {cfg.batch_size} does not split over a data mesh of {mesh.world}")
+    seed = cfg.seed if mesh.rank == 0 else int(
+        np.random.SeedSequence([cfg.seed, mesh.rank]).generate_state(1)[0])
+    return dataclasses.replace(cfg, batch_size=cfg.batch_size // mesh.world, seed=seed)
+
+
+class _NoWriter:
+    """The summaries of a rank other than 0: none."""
+
+    def scalar(self, *args) -> None:
+        pass
+
+    image = histogram = scalar
+
+    def flush(self) -> None:
+        pass
+
+    close = flush
+
+
 def run_synth_training(*, module_name: str, state: TrainState, step_fn: Callable, dataset,
                        cfg: LoopConfig, ckpt_dir: str, log_dir: str,
                        batch_to_args: Callable[[dict], tuple],
                        writer: Optional[MetricsWriter] = None,
-                       image_taps: tuple = ()) -> TrainState:
+                       image_taps: tuple = (), mesh=None) -> TrainState:
     """Pretraining / joint loop over HDR-Synth (the reference's train.py
     shape): resume from the latest checkpoint in ``ckpt_dir``, train to
     ``cfg.iterations``, checkpoint at step 1 and every ``ckpt_every`` steps
-    and at the last step, log the running loss."""
+    and at the last step, log the running loss.
+
+    With a data ``mesh`` every rank restores, rank 0's state is replicated,
+    and each rank's feed makes its own ``cfg.batch_size / world`` samples a
+    step, seeded from ``(cfg.seed, rank)`` (``rank_feed``): the ranks draw
+    apart, as the JAX package's processes do, with no stronger guarantee
+    (the union of a step is not the meshless loop's batch).  Rank 0 alone saves and logs;
+    the logged loss is the global batch's."""
+    lead = mesh is None or mesh.rank == 0
     owned_writer = writer is None
-    writer = writer or MetricsWriter(log_dir)
+    writer = (writer or MetricsWriter(log_dir)) if lead else _NoWriter()
     mgr = CheckpointManager(ckpt_dir)
     state = mgr.restore(state)
+    if mesh is not None:
+        state = replicate(mesh, state)
     start_step = state.step
-    pipeline = SynthBatchPipeline(dataset, cfg, state.device)
+    pipeline = SynthBatchPipeline(dataset, rank_feed(cfg, mesh), state.device)
     prefetcher = _Prefetcher(pipeline.next_batch, cfg.prefetch, cfg.prefetch_producers)
     tracker = Mean(f"loss_{module_name}")
     try:
@@ -238,18 +283,19 @@ def run_synth_training(*, module_name: str, state: TrainState, step_fn: Callable
                 step_time = time.perf_counter() - t0
                 writer.scalar(f"{module_name}/loss", tracker.result(), step)
                 writer.scalar(f"{module_name}/step_time_s", step_time, step)
-                print(f"[{module_name}] step {step}  loss {tracker.result():.5f}  "
-                      f"({step_time:.2f}s/step)", flush=True)
+                if lead:
+                    print(f"[{module_name}] step {step}  loss {tracker.result():.5f}  "
+                          f"({step_time:.2f}s/step)", flush=True)
                 tracker.reset()
             if step % cfg.image_log_every == 0 or step == 1:
                 for tag in image_taps:
                     if tag in aux:
                         writer.image(f"{module_name}/{tag}", aux[tag], step)
                 writer.image(f"{module_name}/jpeg", batch["jpeg"], step)
-            if step % cfg.ckpt_every == 0 or step == 1:
+            if lead and (step % cfg.ckpt_every == 0 or step == 1):
                 mgr.save(state)
         # the last step, when off the cadence: downstream stages restore it
-        if state.step > start_step and state.step != 1 and state.step % cfg.ckpt_every:
+        if lead and state.step > start_step and state.step != 1 and state.step % cfg.ckpt_every:
             mgr.save(state)
         return state
     finally:
@@ -263,9 +309,20 @@ def run_synth_training(*, module_name: str, state: TrainState, step_fn: Callable
             writer.flush()
 
 
+def pad_tail(batch: tuple, full_bs: int, world: int) -> tuple:
+    """JAX's tail rule on a mesh: a batch shorter than ``ceil(full_bs /
+    world) * world`` is padded up to it by repeating its last sample (so on
+    a mesh of 1 too), which trains the tail's last sample more than once."""
+    target = -(-full_bs // world) * world
+    short = target - len(batch[0])
+    if short <= 0:
+        return batch
+    return tuple(np.concatenate([a, np.repeat(a[-1:], short, axis=0)]) for a in batch)
+
+
 def run_real_finetune(*, state: TrainState, step_fn: Callable, pipeline, epochs: int,
                       ckpt_dir: str, log_dir: str,
-                      writer: Optional[MetricsWriter] = None) -> TrainState:
+                      writer: Optional[MetricsWriter] = None, mesh=None) -> TrainState:
     """HDR-Real finetune loop (finetune_real_dataset.py:190-225 shape): resume
     from the latest checkpoint in ``ckpt_dir``, then ``epochs`` passes over
     ``pipeline.epoch()`` (an ``HdrRealPipeline``; the short tail batch is
@@ -273,34 +330,49 @@ def run_real_finetune(*, state: TrainState, step_fn: Callable, pipeline, epochs:
     the epoch's mean loss and time, the stage images and the output's
     histogram after each.  Each batch goes to the state's device in one
     packed upload; step losses are read back a few steps behind the newest
-    (``LaggedReadback``), not synced on every step."""
+    (``LaggedReadback``), not synced on every step.
+
+    With a data ``mesh`` every rank restores, rank 0's state is replicated,
+    every rank reads the same epoch (the pipeline's seed) and trains on its
+    rows of each batch, a short batch padded first (``pad_tail``, JAX's
+    rule): a step's union over the ranks is the padded global batch.  Rank 0
+    alone saves and logs; the logged losses are the global batch's."""
+    lead = mesh is None or mesh.rank == 0
     owned_writer = writer is None
-    writer = writer or MetricsWriter(log_dir)
+    writer = (writer or MetricsWriter(log_dir)) if lead else _NoWriter()
     mgr = CheckpointManager(ckpt_dir)
     state = mgr.restore(state)
+    if mesh is not None:
+        state = replicate(mesh, state)
     tracker = Mean("loss_ref")
+    full_bs = None
     try:
         for epoch in range(1, epochs + 1):
             t0 = time.perf_counter()
             tracker.reset()
             aux = {}
             losses = LaggedReadback(lag=4)
-            for ldr, hdr in pipeline.epoch():
-                _, aux = step_fn(state, *upload_pair(ldr, hdr, state.device))
+            for batch in pipeline.epoch():
+                if mesh is not None:
+                    full_bs = full_bs or len(batch[0])
+                    batch = local_rows(mesh, pad_tail(batch, full_bs, mesh.world))
+                _, aux = step_fn(state, *upload_pair(*batch, state.device))
                 losses.push(aux["loss_ref"])
             for v in losses.drain():
                 tracker.update(v)
             epoch_time = time.perf_counter() - t0
             writer.scalar("ref/loss", tracker.result(), epoch)
             writer.scalar("ref/epoch_time_s", epoch_time, epoch)
-            print(f"[ref] epoch {epoch}  loss {tracker.result():.5f}  ({epoch_time:.1f}s)",
-                  flush=True)
+            if lead:
+                print(f"[ref] epoch {epoch}  loss {tracker.result():.5f}  ({epoch_time:.1f}s)",
+                      flush=True)
             for tag in ("c_pred", "b_pred", "a_pred", "out"):
                 if tag in aux:
                     writer.image(f"ref/{tag}", aux[tag], epoch)
             if "out" in aux:
                 writer.histogram("ref/out_histogram", aux["out"], epoch)
-            mgr.save(state)
+            if lead:
+                mgr.save(state)
         return state
     finally:
         mgr.wait()

@@ -13,7 +13,7 @@ and its moments stay f32 in both.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable
+from typing import Any, Iterable
 
 import torch
 import torch.nn as nn
@@ -50,6 +50,7 @@ class TrainState:
     nets: nn.ModuleDict
     optimizer: torch.optim.Adam
     step: int = 0
+    mesh: Any = None  # a parallel.DataMesh once replicated onto one (parallel.replicate)
 
     @property
     def device(self) -> torch.device:

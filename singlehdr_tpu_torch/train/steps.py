@@ -31,6 +31,16 @@ checkpointing, JAX's policy on ``conv_general_dilated``/``dot_general``).
 ``apply_rf``, the masks, the losses and Adam stay outside, as in JAX.  The
 recompute leaves the BatchNorm running statistics alone
 (``layers.running_stats_frozen``): they move once a step, as without remat.
+
+On a data mesh (a state that ``parallel.replicate`` put on one) a step is
+the single-process step on the global batch, each rank holding its share:
+the nets' BatchNorm layers take global statistics (``layers.bind_mesh``),
+hal's TV term is global (each loss function takes the ``mesh``; the other
+reductions are per sample), the gradients are all-reduced with a SUM
+between ``backward()`` and ``optimizer.step()``, and the returned loss and
+the aux means (``crf_mse``, ``loss_ref``) are the global batch's.  Every
+rank runs the same forward and backward, so their collectives, the remat
+recompute's among them, come in one order.
 """
 
 from __future__ import annotations
@@ -43,12 +53,13 @@ from typing import Callable, NamedTuple
 import torch
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
-from singlehdr_tpu_torch.models.layers import running_stats_frozen
+from singlehdr_tpu_torch.models.layers import bind_mesh, running_stats_frozen
 from singlehdr_tpu_torch.ops.color import bgr_to_rgb
 from singlehdr_tpu_torch.ops.curves import apply_rf
 from singlehdr_tpu_torch.ops.losses import hallucination_loss, masked_l2, scalar_from_per_sample
 from singlehdr_tpu_torch.ops.masks import clip, highlight_alpha
 from singlehdr_tpu_torch.ops.tonemap import mu_tonemap
+from singlehdr_tpu_torch.parallel.mesh import all_reduce_gradients, global_scalars
 from singlehdr_tpu_torch.train.state import TrainState
 
 
@@ -66,6 +77,10 @@ PRETRAIN_WEIGHTS = LossWeights()
 JOINT_WEIGHTS = LossWeights(crf=1.0, lin_l2=10.0)
 
 
+# the aux values that are means over the batch, logged as the global batch's on a mesh
+GLOBAL_MEANS = ("crf_mse", "loss_ref")
+
+
 class StepOutput(NamedTuple):
     loss: torch.Tensor
     aux: dict
@@ -75,13 +90,13 @@ def _crf_mse(pred_invcrf, invcrf_gt):
     return torch.mean(torch.square(pred_invcrf - invcrf_gt), dim=1).reshape(-1, 1, 1, 1)
 
 
-def deq_loss(nets, ldr, jpeg, mask):
+def deq_loss(nets, ldr, jpeg, mask, mesh=None):
     pred = clip(nets["deq"](jpeg), 0.0, 1.0)
     per_sample = masked_l2(pred, ldr, mask)
     return scalar_from_per_sample(per_sample), {"loss_deq": per_sample}
 
 
-def lin_loss(nets, ldr, clipped_hdr_t, mask, invcrf_gt):
+def lin_loss(nets, ldr, clipped_hdr_t, mask, invcrf_gt, mesh=None):
     pred_invcrf = nets["lin"](ldr)
     pred_lin = apply_rf(ldr, pred_invcrf)
     crf_mse = _crf_mse(pred_invcrf, invcrf_gt)
@@ -89,15 +104,15 @@ def lin_loss(nets, ldr, clipped_hdr_t, mask, invcrf_gt):
     return scalar_from_per_sample(per_sample), {"loss_lin": per_sample, "crf_mse": crf_mse.mean()}
 
 
-def hal_loss(nets, vgg, hdr_t, clipped_hdr_t, mask):
+def hal_loss(nets, vgg, hdr_t, clipped_hdr_t, mask, mesh=None):
     alpha = highlight_alpha(clipped_hdr_t)
     y = clipped_hdr_t + alpha * bgr_to_rgb(nets["hal"](clipped_hdr_t))
     per_sample = hallucination_loss(y, hdr_t, vgg, mask, perceptual_weight=PRETRAIN_WEIGHTS.perceptual,
-                                    tv_weight=PRETRAIN_WEIGHTS.tv)
+                                    tv_weight=PRETRAIN_WEIGHTS.tv, mesh=mesh)
     return scalar_from_per_sample(per_sample), {"loss_hal": per_sample, "y_final": y}
 
 
-def joint_loss(nets, vgg, ldr, jpeg, clipped_hdr_t, hdr_t, mask, invcrf_gt):
+def joint_loss(nets, vgg, ldr, jpeg, clipped_hdr_t, hdr_t, mask, invcrf_gt, mesh=None):
     alpha = highlight_alpha(clipped_hdr_t)
     c_pred = clip(nets["deq"](jpeg), 0.0, 1.0)
     loss_deq = masked_l2(c_pred, ldr, mask)
@@ -108,7 +123,7 @@ def joint_loss(nets, vgg, ldr, jpeg, clipped_hdr_t, hdr_t, mask, invcrf_gt):
                 + JOINT_WEIGHTS.crf * crf_mse) * mask
     a_pred = clipped_hdr_t + alpha * bgr_to_rgb(nets["hal"](clipped_hdr_t))
     loss_hal = hallucination_loss(a_pred, hdr_t, vgg, mask, perceptual_weight=JOINT_WEIGHTS.perceptual,
-                                  tv_weight=JOINT_WEIGHTS.tv)
+                                  tv_weight=JOINT_WEIGHTS.tv, mesh=mesh)
     total = scalar_from_per_sample(loss_deq + loss_lin + loss_hal)
     aux = {"loss_deq": loss_deq, "loss_lin": loss_lin, "loss_hal": loss_hal,
            "crf_mse": crf_mse.mean(), "c_pred": c_pred, "b_pred": b_pred, "a_pred": a_pred,
@@ -116,7 +131,7 @@ def joint_loss(nets, vgg, ldr, jpeg, clipped_hdr_t, hdr_t, mask, invcrf_gt):
     return total, aux
 
 
-def finetune_loss(nets, ldr, hdr):
+def finetune_loss(nets, ldr, hdr, mesh=None):
     c_pred = clip(nets["deq"](ldr), 0.0, 1.0)
     pred_invcrf = nets["lin"](c_pred)
     b_pred = apply_rf(c_pred, pred_invcrf)
@@ -132,9 +147,12 @@ def finetune_loss(nets, ldr, hdr):
 
 
 def apply_gradients(state: TrainState, loss: torch.Tensor) -> None:
-    """One backward of the summed loss, one Adam step, step + 1."""
+    """One backward of the summed loss, the gradients summed over the
+    state's mesh if it has one, one Adam step, step + 1."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if state.mesh is not None:
+        all_reduce_gradients(state.mesh, state.nets.parameters())
     state.optimizer.step()
     state.step += 1
 
@@ -177,10 +195,14 @@ def _step(loss_fn: Callable, dtype: torch.dtype, *bound, remat=False) -> Callabl
         if state.dtype != dtype:
             raise ValueError(f"a {dtype} train step called on nets that compute in {state.dtype}")
         state.nets.train()
+        bind_mesh(state.nets, state.mesh)
         nets = {name: _checkpointed(net, remat) for name, net in state.nets.items()}
-        loss, aux = loss_fn(nets, *bound, *batch)
+        loss, aux = loss_fn(nets, *bound, *batch, mesh=state.mesh)
         apply_gradients(state, loss)
-        return StepOutput(loss.detach(), {k: v.detach() for k, v in aux.items()})
+        aux = {k: v.detach() for k, v in aux.items()}
+        sums, means = global_scalars(state.mesh, {"loss": loss.detach()},
+                                     {k: aux[k] for k in GLOBAL_MEANS if k in aux})
+        return StepOutput(sums["loss"], {**aux, **means})
 
     return train_step
 

@@ -17,9 +17,10 @@ from singlehdr_tpu.data import jpeg as jjpeg
 from singlehdr_tpu.data import loader as jloader
 from singlehdr_tpu.data import synth as jsynth
 from singlehdr_tpu.data.datasets import ArrayDataset as JArrayDataset
+from singlehdr_tpu.data.datasets import CachedDataset as JCachedDataset
 from singlehdr_tpu_torch import calib, utils
 from singlehdr_tpu_torch.data import hdr_io, jpeg, loader, synth
-from singlehdr_tpu_torch.data.datasets import ArrayDataset
+from singlehdr_tpu_torch.data.datasets import ArrayDataset, CachedDataset
 
 
 @pytest.mark.parametrize("which", ["load_emor", "load_inverse_emor"])
@@ -129,3 +130,38 @@ def test_utils_equal(tmp_path):
     dirs = utils.create_run_dirs(str(tmp_path), "deq")
     assert sorted(dirs) == ["outputImg", "tensorboard"]
     assert all(os.path.isdir(p) and p.startswith(str(tmp_path)) for p in dirs.values())
+
+
+def test_crf_bank_n_train_equal():
+    bank, jbank = calib.get_crf_bank(), jcalib.get_crf_bank()
+    assert bank.n_train == jbank.n_train == bank.train_crf.shape[0] > 0
+
+
+class _CountingDataset:
+    def __init__(self, n):
+        self.reads = []
+        self._n = n
+
+    def __getitem__(self, idx):
+        self.reads.append(idx)
+        return (np.full((2,), idx, np.float32), idx * 10)
+
+    def __len__(self):
+        return self._n
+
+
+@pytest.mark.parametrize("eager", [False, True])
+def test_cached_dataset_reads_each_item_once_as_the_jax_one(eager):
+    """The copy of ``CachedDataset`` (the reference's MemDataset): the same
+    items, the same length, and each inner item read once, lazily or up
+    front, as the JAX class does."""
+    port_inner, jax_inner = _CountingDataset(5), _CountingDataset(5)
+    port, jax_ds = CachedDataset(port_inner, eager=eager), JCachedDataset(jax_inner, eager=eager)
+    assert port_inner.reads == jax_inner.reads == ([0, 1, 2, 3, 4] if eager else [])
+    for idx in (3, 1, 3, 0, 1):
+        got, want = port[idx], jax_ds[idx]
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1] == want[1]
+    assert len(port) == len(jax_ds) == 5
+    assert port_inner.reads == jax_inner.reads
+    assert sorted(port_inner.reads) == sorted(set(port_inner.reads))

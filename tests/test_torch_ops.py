@@ -316,6 +316,7 @@ def test_port_imports_no_jax():
         "import singlehdr_tpu_torch.train.tensorbundle, singlehdr_tpu_torch.train.object_graph\n"
         "import singlehdr_tpu_torch.train.ref_inventory, singlehdr_tpu_torch.train.weight_import\n"
         "import singlehdr_tpu_torch.cli.import_reference, singlehdr_tpu_torch.cli.export_weights\n"
+        "import singlehdr_tpu_torch.parallel, singlehdr_tpu_torch.parallel.mesh\n"
         "singlehdr_tpu_torch.calib.get_crf_bank()\n"
         "singlehdr_tpu_torch.data.native_jpeg.available()\n"
         "import tempfile\n"
