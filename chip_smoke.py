@@ -3,6 +3,8 @@ f32 and bf16), holds each against its plain PyTorch version at the serving,
 training and HDR-Real shapes, serves a few requests through the port's HTTP
 server, trains the joint configuration through the ``joint_train`` CLI,
 trains on a data mesh (two ranks on the card; the CLIs at ``--mesh 1``),
+infers and trains with image rows split over a spatial mesh (two and four
+ranks on the card),
 runs the HDR-Real path (record conversion, finetune, whole and tiled
 inference, evaluation, HDR-Synth validation) through its CLIs, carries the
 trained checkpoints through the reference TF2 format and back, and trains
@@ -110,10 +112,13 @@ Phases (each prints its own lines; any failure exits non-zero):
              step's, and the tensor farthest from the plain bf16 step
   15 multi   (a) two gloo ranks on the one card (CUDA tensors; subprocesses
              of this script, ``--mesh-rank``, under a timeout): the joint
-             step at 16 x 256^2 (8 a rank) in f32 and bf16 and the finetune
-             step at 4 x 256^2 (2 a rank), each against the single-process
-             step on the full batch from one snapshot by phase 10's
-             criteria, the ranks' parameters bit-equal, the step's time (two
+             step at 16 x 256^2 (8 a rank) in f32, float64 and bf16 and the
+             finetune step at 4 x 256^2 (2 a rank) in f32 and float64, each
+             against the single-process step on the full batch from one
+             snapshot by phase 10's criteria (float64: within 1e-10; the
+             f32 finetune step by its distance from float64 against
+             one-process runs one ulp of input apart), the ranks'
+             parameters bit-equal, the step's time (two
              processes sharing one card: not a scaling figure); (b)
              cli.joint_train (2 steps) and cli.finetune (2 epochs of one
              batch of 4, no tail) with --mesh 1, a process group of one over
@@ -121,6 +126,28 @@ Phases (each prints its own lines; any failure exits non-zero):
              parameters and BN statistics after step 1, final parameters; (c) the joint step with --mesh 1 against
              without (f32, bf16, in turns) and the gradient all-reduce's
              time; K1 and K1-bwd counted on the mesh runs, K2-K4 never
+  16 spatial (a) two gloo ranks on the one card, D=1 x S=2 (rows split in
+             two bands): tiled.shard_spatial on phase 12's first photo
+             (1024x1536, bands of 512 rows), f32 and bf16, against the
+             one-process whole-photo forward: f32 within 1e-4 of max|ref|,
+             bf16 PSNR >= 40 dB against the f32 whole photo; each rank's
+             launches a forward (K1 x1, K2 x6, K3 x1, K4 x2) and the height
+             of every K2-K4 input (its band + the even halo of each inner
+             side); (b) K2, K4 (each stage of phase 3's cases) and K3 at
+             [4, *, 576^2] on the top, a middle and the bottom band of 4,
+             f32 and bf16: the kernel on the extended band against its plain
+             version there, and its output cropped to the band against the
+             rows of the plain version on the whole tensor, by phase 3's
+             criteria; (c), (d) phase 15's joint (16 x 256^2, f32, float64,
+             bf16) and finetune (4 x 256^2, f32, float64) steps on D=1 x
+             S=2, (e) the f32 joint step on D=2 x S=2 (four ranks), each by
+             phase 15's criteria against the same one-process steps, but
+             the f32 joint step as the f32 finetune step (the comment at
+             MESH_F64_REL_TOL says why); (f) their
+             launches: K1 and K1-bwd, K2-K4 never; (g) each spatial step's
+             time and the share of it its halo exchanges take (each timed
+             alone, synchronised); two or four processes share one card, so
+             no time here is a scaling figure
 The second-to-last line is the kernels' JSON record, one entry a (kernel,
 dtype): K2-K4's bf16 kernels as ``unet_stage2_bf16``, ``lin_feature_stem_bf16``
 and ``encoder_stage2_bf16`` (with each kernel's launches by path and per
@@ -295,11 +322,28 @@ MESH_CLI_SLACK = 2.0
 # f32 phase 10's per-tensor bound does not hold for this step even between
 # two one-process runs that differ only by rounding (its L1 signs, clips and
 # LUT bins), so each net's distance from the float64 step is held to
-# MESH_F32_SLACK times the farthest of MESH_F32_WITNESSES + 2 one-process f32
-# steps: the step itself, again, and on inputs moved by one ulp each, seeded
+# MESH_F32_SLACK times the farthest of MESH_F32_WITNESSES +
+# MESH_F32_WEIGHT_WITNESSES + 2 one-process f32 steps: the step itself, again,
+# on inputs moved by one ulp each and from weights moved by one ulp each,
+# seeded.  Weights one ulp apart round every layer otherwise, as the bands'
+# other shapes do (other cuDNN algorithms): on phase 12's batch they spread
+# as far from float64 as two bands do, where inputs one ulp apart did not
+# (PERF.md, section 6, PR 12); one draw of such a spread is heavy-tailed, so
+# several are taken.
+# The joint step is held in float64 the same way; in f32 by phase 10's
+# per-tensor bound on a data mesh, and on a spatial mesh (phase 16) as the
+# finetune step: there its hal encoder's weight gradients move past that
+# bound between one-process runs one ulp of input apart as well (PERF.md,
+# section 6, PR 12)
 MESH_F64_REL_TOL = 1e-10
 MESH_F32_WITNESSES = 3
+MESH_F32_WEIGHT_WITNESSES = 6
 MESH_F32_SLACK = 2.0
+# phase 16, the spatial axis: bands of the ranks' meshes, forwards timed after
+# the compared one, and bands of phase 3's cases for K2-K4 on extended bands
+SPATIAL_BANDS = 2
+SPATIAL_TIMED_FORWARDS = 3
+SPATIAL_KERNEL_BANDS = 4
 HBM_BYTES_PER_S = 3.35e12
 SLEEP_CYCLES_PER_S = 2.0e9  # device_ms's lead: at least the SM clock (1.98 GHz at most)
 F32_TENSOR_FLOPS = 495e12 / 3   # 3xTF32
@@ -2337,14 +2381,18 @@ def remat_clis(card: str, work: str, train_root: str, files: dict) -> dict:
 
 
 def mesh_rank(rank: int, work: str) -> int:
-    """Phase 15 (a), one rank: joins a gloo group of MESH_RANKS processes on
-    the parent's device, the one card (``file://`` rendezvous under
-    ``work``), and for each case of ``work``/cases.json replicates the
-    snapshot, takes its rows of the global batch, runs one step (rank 0
-    saves the loss, the gradients and the BatchNorm statistics; every rank a
-    digest of its new parameters), then MESH_TIMED_STEPS more, timed (a
-    float64 case, ``float64_steps``, is not timed); saves its launch
-    counts."""
+    """Phases 15 (a) and 16, one rank: joins a gloo group of the spec's
+    ``world`` processes on the parent's device, the one card (``file://``
+    rendezvous under ``work``), and for each case of ``work``/cases.json, on
+    the case's mesh (``[D, S]``; a data mesh of the world by default):
+    a step case replicates the snapshot, takes its share of the global
+    batch (its samples, on a spatial mesh its band of their rows), runs one
+    step (rank 0 saves the loss, the gradients and the BatchNorm
+    statistics; every rank a digest of its new parameters), then
+    MESH_TIMED_STEPS more, timed (a float64 case, ``float64_steps``, is not
+    timed), and on a spatial mesh MESH_TIMED_STEPS more with every halo
+    exchange timed (``halo_share``); a ``shard_spatial`` case runs
+    ``spatial_forward``.  Saves its launch counts."""
     import hashlib
 
     import torch.distributed as dist
@@ -2359,16 +2407,25 @@ def mesh_rank(rank: int, work: str) -> int:
     use_full_f32()
     with open(os.path.join(work, "cases.json")) as f:
         spec = json.load(f)
-    dev, cases = torch.device(spec["device"]), spec["cases"]
+    dev, cases, world = torch.device(spec["device"]), spec["cases"], spec.get("world", MESH_RANKS)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    dist.init_process_group("gloo", init_method=f"file://{work}/rdzv", world_size=MESH_RANKS, rank=rank)
-    mesh = make_mesh(MESH_RANKS, device=dev)
-    vgg = Vgg16Features().to(dev)
+    dist.init_process_group("gloo", init_method=f"file://{work}/rdzv", world_size=world, rank=rank)
+    meshes = {}
+    vgg, vgg64 = Vgg16Features().to(dev), None
     kernels.reset_launches()
     out, rank_steps = {}, 0
     for case in cases:
+        shape = tuple(case.get("mesh", (world, 1)))
+        if shape not in meshes:  # every rank makes the meshes' groups in one order
+            meshes[shape] = make_mesh(*shape, device=dev)
+        mesh = meshes[shape]
+        before = kernels.launch_counts_by_dtype()
+        if case.get("kind") == "shard_spatial":
+            out[case["label"]] = spatial_forward(mesh, dev, case, sync)
+            out[case["label"]]["case_launches"] = counts_since(before)
+            continue
         dtype = getattr(torch, case["dtype"])
         f64 = dtype == torch.float64
         state = init_multi_state(case["nets"], 1e-5, seed=SEED, device=dev,
@@ -2377,11 +2434,13 @@ def mesh_rank(rank: int, work: str) -> int:
         if f64:
             float64_nets(state.nets)
         replicate(mesh, state)
-        batch = shard_batch(mesh, torch.load(os.path.join(work, case["batch"])))
+        batch = shard_batch(mesh, torch.load(os.path.join(work, case["batch"])), spatial_dim=2)
         if f64:
             batch = [t.double() for t in batch]
+        if f64 and case["step"] == "joint" and vgg64 is None:
+            vgg64 = float64_nets(Vgg16Features().to(dev))
         step = (steps.make_finetune_train_step(dtype) if case["step"] == "finetune"
-                else steps.make_joint_train_step(vgg, dtype))
+                else steps.make_joint_train_step(vgg64 if f64 else vgg, dtype))
         with float64_steps() if f64 else contextlib.nullcontext():
             loss, _ = step(state, *batch)
         sync()
@@ -2404,6 +2463,11 @@ def mesh_rank(rank: int, work: str) -> int:
             walls.append((time.perf_counter() - t0) * 1e3)
         result["step_ms"] = float(np.median(walls))
         rank_steps += 0 if f64 else 1 + MESH_TIMED_STEPS  # float64 launches no kernel
+        if mesh.spatial > 1 and not f64:
+            result["halo"] = halo_share(lambda: step(state, *batch), sync)
+            rank_steps += MESH_TIMED_STEPS
+        result["case_launches"] = counts_since(before)
+        result["case_steps"] = (0 if f64 else 1 + MESH_TIMED_STEPS) + ("halo" in result) * MESH_TIMED_STEPS
         out[case["label"]] = result
         del state, batch
         sync()
@@ -2413,13 +2477,112 @@ def mesh_rank(rank: int, work: str) -> int:
     return 0
 
 
-def run_mesh_ranks(work: str) -> list:
-    """Starts the MESH_RANKS rank processes (``chip_smoke.py --mesh-rank``)
-    and waits for both under MESH_RANK_TIMEOUT_S; a failed or hung rank
-    fails the phase.  Returns each rank's results."""
+def counts_since(before: dict) -> dict:
+    """Each kernel's launches by dtype since ``before`` (a
+    ``launch_counts_by_dtype``)."""
+    from singlehdr_tpu_torch.ops import cuda as kernels
+
+    return {k: {dt: n - before.get(k, {}).get(dt, 0) for dt, n in v.items()}
+            for k, v in kernels.launch_counts_by_dtype().items()}
+
+
+def halo_share(run_step, sync) -> dict:
+    """Phase 16 (g): MESH_TIMED_STEPS steps with every halo exchange timed
+    alone (``parallel.mesh._exchange`` wrapped, the card synchronised before
+    and after it, so its time includes waiting for the other band):
+    {"step_ms": the median step, "halo_ms": the median step's exchanges,
+    "exchanges": a step's count, "bytes": a step's bytes each band sends}."""
+    import torch.distributed as dist
+
+    from singlehdr_tpu_torch.parallel import mesh as pm
+
+    exchange, spent, sent = pm._exchange, [], []
+
+    def timed(rows, mesh):
+        sync()
+        t0 = time.perf_counter()
+        got = exchange(rows, mesh)
+        sync()
+        spent.append((time.perf_counter() - t0) * 1e3)
+        sent.append(rows.numel() * rows.element_size())
+        return got
+
+    pm._exchange = timed
+    walls, halos = [], []
+    try:
+        for _ in range(MESH_TIMED_STEPS):
+            dist.barrier()
+            sync()
+            spent.clear()
+            sent.clear()
+            t0 = time.perf_counter()
+            run_step()
+            sync()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            halos.append(sum(spent))
+    finally:
+        pm._exchange = exchange
+    i = int(np.argsort(walls)[len(walls) // 2])
+    return {"step_ms": walls[i], "halo_ms": halos[i], "exchanges": len(spent), "bytes": sum(sent)}
+
+
+def spatial_forward(mesh, dev, case: dict, sync) -> dict:
+    """Phase 16 (a), one rank: ``tiled.shard_spatial`` of the seeded
+    pipeline (``case["dtype"]``) on the photo, once with each kernel's
+    launches and the height of every K2-K4 input recorded (the models'
+    wrappers wrapped), then SPATIAL_TIMED_FORWARDS times, synchronised.
+    Returns the output (rank 0), the first forward's launches and input
+    heights, and the median forward's ms."""
+    import torch.distributed as dist
+
+    from singlehdr_tpu_torch.models import build_pipeline, hallucination, linearization, unet
+    from singlehdr_tpu_torch.ops import cuda as kernels
+    from singlehdr_tpu_torch.tiled import shard_spatial
+
+    pipe = build_pipeline(seed=SEED, device=dev, dtype=getattr(torch, case["dtype"]))
+    img = np.load(case["photo"])
+    heights = {}
+    wrapped = [(unet, "unet_stage2"), (linearization, "lin_feature_stem"), (hallucination, "encoder_stage2")]
+    originals = [getattr(module, name) for module, name in wrapped]
+
+    def recording(name, fn):
+        def call(x, *args):
+            heights.setdefault(name, []).append(int(x.shape[2]))
+            return fn(x, *args)
+        return call
+
+    for (module, name), fn in zip(wrapped, originals):
+        setattr(module, name, recording(name, fn))
+    before = kernels.launch_counts()
+    try:
+        out = shard_spatial(pipe, img, mesh)
+    finally:
+        for (module, name), fn in zip(wrapped, originals):
+            setattr(module, name, fn)
+    sync()
+    after = kernels.launch_counts()
+    walls = []
+    for _ in range(SPATIAL_TIMED_FORWARDS):
+        dist.barrier()
+        sync()
+        t0 = time.perf_counter()
+        shard_spatial(pipe, img, mesh)
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    del pipe
+    torch.cuda.empty_cache()
+    return {"out": torch.from_numpy(out) if mesh.rank == 0 else None, "heights": heights, "band": img.shape[0] // mesh.spatial,
+            "launches": {k: after[k] - before[k] for k in after}, "ms": float(np.median(walls)),
+            "forwards": 1 + SPATIAL_TIMED_FORWARDS}
+
+
+def run_mesh_ranks(work: str, n: int = MESH_RANKS) -> list:
+    """Starts the ``n`` rank processes (``chip_smoke.py --mesh-rank``) and
+    waits for all under MESH_RANK_TIMEOUT_S; a failed or hung rank fails
+    the phase.  Returns each rank's results."""
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r), work],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(MESH_RANKS)]
+             for r in range(n)]
     outs = []
     try:
         for p in procs:
@@ -2432,7 +2595,7 @@ def run_mesh_ranks(work: str) -> list:
     for r, (p, text) in enumerate(zip(procs, outs)):
         if p.returncode != 0:
             raise AssertionError(f"mesh rank {r} exited {p.returncode}:\n{text[-4000:]}")
-    return [torch.load(os.path.join(work, f"rank{r}.pt")) for r in range(MESH_RANKS)]
+    return [torch.load(os.path.join(work, f"rank{r}.pt")) for r in range(n)]
 
 
 def grad_bound_ratio(got: dict, want: dict) -> dict:
@@ -2475,19 +2638,22 @@ def float64_nets(nets):
     return nets
 
 
-def float64_finetune_step(dev, snapshot: dict, batch: list) -> dict:
-    """One finetune step of the nets in ``snapshot`` on the card in float64
-    (``float64_steps``): its loss, gradients and new BatchNorm statistics,
-    as float64 CPU tensors."""
+def float64_step(dev, case: dict, snapshot: dict, batch: list) -> dict:
+    """One step (``case``'s joint or finetune) of the nets in ``snapshot``
+    on the card in float64 (``float64_steps``; the joint step's VGG in
+    float64 too): its loss, gradients and new BatchNorm statistics, as
+    float64 CPU tensors."""
+    from singlehdr_tpu_torch.models.vgg16 import Vgg16Features
     from singlehdr_tpu_torch.train import steps
     from singlehdr_tpu_torch.train.state import init_multi_state
 
-    state = init_multi_state(("deq", "lin", "hal", "ref"), 1e-5, seed=SEED, device=dev)
+    state = init_multi_state(case["nets"], 1e-5, seed=SEED, device=dev)
     state.nets.load_state_dict(snapshot)
     float64_nets(state.nets)
+    step = (steps.make_finetune_train_step(torch.float64) if case["step"] == "finetune"
+            else steps.make_joint_train_step(float64_nets(Vgg16Features().to(dev)), torch.float64))
     with float64_steps():
-        loss, _ = steps.make_finetune_train_step(torch.float64)(
-            state, *[t.to(dev, torch.float64) for t in batch])
+        loss, _ = step(state, *[t.to(dev, torch.float64) for t in batch])
     torch.cuda.synchronize()
     out = {"loss": loss.item(), "grads": {n: p.grad.double().cpu() for n, p in state.nets.named_parameters()},
            "stats": {n: v.double().cpu() for n, v in state.nets.named_buffers()
@@ -2520,23 +2686,14 @@ def f64_ratio(got: dict, want: dict) -> dict:
     return worst
 
 
-def mesh_two_ranks(dev, card: str, files: dict, work: str) -> tuple:
-    """Phase 15 (a): the joint step at batch 16, 256^2 (8 a rank), f32 and
-    bf16, and the finetune step at batch 4 (phase 12's first record batch,
-    2 a rank), f32 and float64, each on MESH_RANKS gloo ranks sharing the
-    one card (CUDA tensors; NCCL needs a card a rank), from the snapshot of
-    a seeded state, against the single-process step on the full batch from
-    the same snapshot.  The joint steps by phase 10's criteria: loss within
-    STEP_LOSS_REL_TOL (bf16 BF16_STEP_LOSS_REL_TOL), each gradient within
-    phase 10's bound (bf16: ``bf16_net_failures`` against the
-    single-process f32 and bf16 steps), the new BatchNorm statistics within
-    STEP_STATS_REL_TOL (bf16: BF16_STATS_REL_TOL).  The finetune step: in
-    float64 loss, gradients and statistics within MESH_F64_REL_TOL; in f32
-    loss and statistics as the joint step, each net's gradient distance
-    from the float64 step within MESH_F32_SLACK times its witnesses'
-    farthest (the comment at MESH_F64_REL_TOL says why).  Every case: the
-    ranks' parameters bit-equal.  Returns the ranks' launches and
-    rank-steps."""
+def mesh_references(dev, files: dict, work: str) -> dict:
+    """Phases 15 (a) and 16's cases and what their rank steps are held to:
+    the joint step at batch 16, 256^2, and the finetune step at batch 4
+    (phase 12's first record batch), each in f32, float64 and (joint) bf16,
+    each the single-process step on the full batch from the snapshot of a
+    seeded state (the f32 steps with their witnesses, ``mesh_ranks_vs_one``
+    says why).  Returns {"root", "cases", "single"}, the snapshots and
+    batches written under "root"."""
     from singlehdr_tpu_torch.data.real import HdrRealPipeline
     from singlehdr_tpu_torch.models.vgg16 import Vgg16Features
     from singlehdr_tpu_torch.train import steps
@@ -2552,6 +2709,8 @@ def mesh_two_ranks(dev, card: str, files: dict, work: str) -> tuple:
     all_nets = ["deq", "lin", "hal", "ref"]
     cases = [{"label": "joint f32", "step": "joint", "dtype": "float32", "nets": ["deq", "lin", "hal"],
               "batch": "joint.pt"},
+             {"label": "joint f64", "step": "joint", "dtype": "float64", "nets": ["deq", "lin", "hal"],
+              "batch": "joint.pt", "snapshot": "joint_float32.pt"},
              {"label": "joint bf16", "step": "joint", "dtype": "bfloat16", "nets": ["deq", "lin", "hal"],
               "batch": "joint.pt"},
              {"label": "finetune f32", "step": "finetune", "dtype": "float32", "nets": all_nets,
@@ -2563,22 +2722,28 @@ def mesh_two_ranks(dev, card: str, files: dict, work: str) -> tuple:
     single = {}
     for case in cases:
         if case["dtype"] == "float64":
-            single[case["label"]] = float64_finetune_step(
-                dev, torch.load(os.path.join(root, case["snapshot"])), finetune)
+            single[case["label"]] = float64_step(dev, case, torch.load(os.path.join(root, case["snapshot"])),
+                                                 finetune if case["step"] == "finetune" else joint)
             continue
         dtype = getattr(torch, case["dtype"])
         case["snapshot"] = f"{case['step']}_{case['dtype']}.pt"
         step = (steps.make_finetune_train_step(dtype) if case["step"] == "finetune"
                 else steps.make_joint_train_step(vgg, dtype))
-        witnesses = 1 + MESH_F32_WITNESSES if case["label"] == "finetune f32" else 0
+        moved_inputs = 1 + MESH_F32_WITNESSES  # the step, again, then on ulp-moved inputs
+        witnesses = moved_inputs + MESH_F32_WEIGHT_WITNESSES if case["dtype"] == "float32" else 0
         runs = []
-        for i in range(1 + witnesses):  # the step, again, then on ulp-moved inputs
+        for i in range(1 + witnesses):  # then from ulp-moved weights
             state = init_multi_state(case["nets"], 1e-5, seed=SEED, device=dev, dtype=dtype)
             if i == 0:
                 torch.save({k: v.cpu() for k, v in state.nets.state_dict().items()},
                            os.path.join(root, case["snapshot"]))
+            if i > moved_inputs:
+                sd = state.nets.state_dict()
+                names = [k for k, v in sd.items() if v.is_floating_point()]
+                state.nets.load_state_dict({**sd, **dict(zip(names, ulp_moved([sd[k] for k in names],
+                                                                             SEED + 30 + i)))})
             batch = [t.to(dev) for t in (finetune if case["step"] == "finetune" else joint)]
-            loss, _ = step(state, *(ulp_moved(batch, SEED + 10 + i) if i > 1 else batch))
+            loss, _ = step(state, *(ulp_moved(batch, SEED + 10 + i) if 1 < i <= moved_inputs else batch))
             torch.cuda.synchronize()
             runs.append({"loss": loss.item(),
                          "grads": {n: p.grad.double().cpu() for n, p in state.nets.named_parameters()},
@@ -2587,7 +2752,7 @@ def mesh_two_ranks(dev, card: str, files: dict, work: str) -> tuple:
             del state, batch
             torch.cuda.empty_cache()
         single[case["label"]] = {**runs[0], "witnesses": [r["grads"] for r in runs]}
-        if witnesses:  # the kernels a rank's share of the batch changes, one process
+        if case["label"] == "finetune f32":  # the kernels a rank's share of the batch changes, one process
             names = {}
             for b in (REAL_BATCH, REAL_BATCH // MESH_RANKS):
                 state = init_multi_state(case["nets"], 1e-5, seed=SEED, device=dev, dtype=dtype)
@@ -2600,12 +2765,42 @@ def mesh_two_ranks(dev, card: str, files: dict, work: str) -> tuple:
                   f"{short[REAL_BATCH]}; only at b{REAL_BATCH // MESH_RANKS}: {short[REAL_BATCH // MESH_RANKS]}",
                   flush=True)
             torch.cuda.empty_cache()
-    with open(os.path.join(root, "cases.json"), "w") as f:
-        json.dump({"device": str(dev), "cases": cases}, f)
+    return {"root": root, "cases": cases, "single": single}
+
+
+def mesh_ranks_vs_one(dev, card: str, refs: dict, shape: tuple = (MESH_RANKS, 1), labels=None,
+                      extra: tuple = ()) -> tuple:
+    """Phase 15 (a) (a data mesh of MESH_RANKS) and phase 16 (c)-(e) (D=1 x
+    S=2, D=2 x S=2): ``refs``' cases (those of ``labels``, all for None) on
+    D x S gloo ranks sharing the one card (CUDA tensors; NCCL needs a card
+    a rank), each against the single-process step on the full batch from
+    the same snapshot.  The joint steps by phase 10's criteria: loss within
+    STEP_LOSS_REL_TOL (bf16 BF16_STEP_LOSS_REL_TOL), each gradient within
+    phase 10's bound (bf16: ``bf16_net_failures`` against the
+    single-process f32 and bf16 steps), the new BatchNorm statistics within
+    STEP_STATS_REL_TOL (bf16: BF16_STATS_REL_TOL).  Both steps in float64:
+    loss, gradients and statistics within MESH_F64_REL_TOL.  The finetune
+    step in f32, and on a spatial mesh the joint step too: loss and
+    statistics as above, each net's gradient distance from the float64 step
+    within MESH_F32_SLACK times its witnesses' farthest (the comment at
+    MESH_F64_REL_TOL says why).  Every case: the
+    ranks' parameters bit-equal.  ``extra`` cases (``shard_spatial``) run
+    on the same ranks first.  Returns the ranks' launches, rank-steps and
+    results."""
+    d, sp = shape
+    root, single = refs["root"], refs["single"]
+    cases = [dict(c, mesh=[d, sp], snapshot=os.path.join(root, c["snapshot"]),
+                  batch=os.path.join(root, c["batch"]))
+             for c in refs["cases"] if labels is None or c["label"] in labels]
+    run = os.path.join(root, f"mesh_{d}x{sp}")
+    os.makedirs(run)
+    with open(os.path.join(run, "cases.json"), "w") as f:
+        json.dump({"device": str(dev), "world": d * sp,
+                   "cases": [*(dict(c, mesh=[d, sp]) for c in extra), *cases]}, f)
     t0 = time.perf_counter()
-    ranks = run_mesh_ranks(root)
-    print(f"  {MESH_RANKS} gloo ranks on the one card: {time.perf_counter() - t0:.1f} s wall incl. start-up",
-          flush=True)
+    ranks = run_mesh_ranks(run, d * sp)
+    where = f"on D={d} x S={sp} ({d * sp} gloo ranks on the one card)"
+    print(f"  {where}: {time.perf_counter() - t0:.1f} s wall incl. start-up", flush=True)
     failures = []
     for case in cases:
         label = case["label"]
@@ -2617,7 +2812,7 @@ def mesh_two_ranks(dev, card: str, files: dict, work: str) -> tuple:
             failures.append(f"{label}: the ranks' parameters differ")
         if case["dtype"] == "float64":
             worst = f64_ratio(got["grads"], want["grads"])
-            print(f"  {label} on {MESH_RANKS} ranks vs one process on the full batch: loss rel {loss_rel:.3e}; "
+            print(f"  {label} {where} vs one process on the full batch: loss rel {loss_rel:.3e}; "
                   f"BN statistics rel {stats_rel:.3e}; worst gradient error over its net's largest: "
                   f"{'; '.join(f'{net} {r:.3e}' for net, r in sorted(worst.items()))} (bound "
                   f"{MESH_F64_REL_TOL:.0e} each); ranks' parameters bit-equal: {equal}  [{card}]", flush=True)
@@ -2643,42 +2838,224 @@ def mesh_two_ranks(dev, card: str, files: dict, work: str) -> tuple:
             for n, r in ratio.items():
                 worst[n.split(".")[0]] = max(worst.get(n.split(".")[0], (0.0, "")), (r, n))
             grads = "; ".join(f"{net} {r:.3f} ({n})" for net, (r, n) in sorted(worst.items()))
-            if label == "finetune f32":
-                ref = single["finetune f64"]["grads"]
+            if label == "finetune f32" or sp > 1:
+                ref = single[f"{case['step']} f64"]["grads"]
+                moved_inputs = 2 + MESH_F32_WITNESSES
                 again = max(grad_bound_ratio(want["witnesses"][1], want["grads"]).values())
-                spread = max(max(grad_bound_ratio(w, want["grads"]).values()) for w in want["witnesses"][2:])
+                spread = max(max(grad_bound_ratio(w, want["grads"]).values())
+                             for w in want["witnesses"][2:moved_inputs])
+                moved_weights = max(max(grad_bound_ratio(w, want["grads"]).values())
+                                    for w in want["witnesses"][moved_inputs:])
                 report = []
                 for net in sorted(worst):
                     dist, cos = net_distance(got["grads"], ref, net)
                     seen = [net_distance(w, ref, net)[0] for w in want["witnesses"]]
                     bound = MESH_F32_SLACK * max(seen)
                     report.append(f"{net} {dist:.3e} (cos {cos:.6f}; {dist / bound:.3f} of its bound; one process, "
-                                  f"again, on moved inputs {', '.join(f'{d:.3e}' for d in seen)})")
+                                  f"again, on moved inputs {', '.join(f'{d:.3e}' for d in seen[:moved_inputs])}, "
+                                  f"from moved weights {', '.join(f'{d:.3e}' for d in seen[moved_inputs:])})")
                     if not dist <= bound:
                         failures.append(f"{label}: {net} distance {dist:.3e} > {MESH_F32_SLACK} x {max(seen):.3e}")
                 grads += (f" (not held: the one-process step run again reads {again:.3f} from it, on inputs one ulp "
-                          f"apart up to {spread:.3f}); distance from the float64 step by net: " + "; ".join(report))
+                          f"apart up to {spread:.3f}, from weights one ulp apart up to {moved_weights:.3f}); "
+                          f"distance from the float64 step by net: " + "; ".join(report))
             else:
                 failures += [f"{label}: {n} at {r:.3f} of phase 10's bound" for n, r in ratio.items()
                              if not r <= 1]
         loss_tol = BF16_STEP_LOSS_REL_TOL if bf16 else STEP_LOSS_REL_TOL
         stats_tol = BF16_STATS_REL_TOL if bf16 else STEP_STATS_REL_TOL
-        print(f"  {label} on {MESH_RANKS} ranks vs one process on the full batch: loss rel {loss_rel:.3e} "
+        halo = ranks[0][label].get("halo")
+        halo = (f"; with each halo exchange timed alone (synchronised, so it holds the wait for the other "
+                f"band): step {halo['step_ms']:.2f} ms, of it {halo['halo_ms']:.2f} ms in {halo['exchanges']} "
+                f"exchanges ({halo['halo_ms'] / halo['step_ms']:.1%}), {halo['bytes'] / 2**20:.2f} MiB a band "
+                f"sends" if halo else "")
+        print(f"  {label} {where} vs one process on the full batch: loss rel {loss_rel:.3e} "
               f"(bound {loss_tol}); BN statistics rel {stats_rel:.3e} (bound {stats_tol:.3g}); worst "
               f"gradient ratio to the bound by net: {grads}; ranks' parameters bit-equal: {equal}; "
-              f"step {ranks[0][label]['step_ms']:.2f} ms wall (median of {MESH_TIMED_STEPS}; two processes "
-              f"sharing one card over gloo, which copies through the host: not a scaling figure)  [{card}]",
-              flush=True)
+              f"step {ranks[0][label]['step_ms']:.2f} ms wall (median of {MESH_TIMED_STEPS}; {d * sp} processes "
+              f"sharing one card over gloo, which copies through the host: not a scaling figure){halo}  "
+              f"[{card}]", flush=True)
         if not loss_rel <= loss_tol:
             failures.append(f"{label}: loss rel {loss_rel:.3e}")
         if not stats_rel <= stats_tol:
             failures.append(f"{label}: BN statistics rel {stats_rel:.3e}")
     if failures:
-        raise AssertionError("two ranks vs one process:\n  " + "\n  ".join(failures))
+        raise AssertionError(f"ranks {where} vs one process:\n  " + "\n  ".join(failures))
     launches = {}
     for r in ranks:
         _add_counts(launches, r["launches"])
-    return launches, sum(r["rank_steps"] for r in ranks)
+    return launches, sum(r["rank_steps"] for r in ranks), ranks
+
+
+class ExtendedBand:
+    """Band ``band`` of ``spatial`` of a global [b, c, H, w] tensor as a
+    mesh to the band-aware ops in one process: its halo rows are cut from
+    the tensor, as ``halo_rows`` receives them (nothing beyond the image's
+    edges); an op that asks for the halo of rows other than the band's own
+    fails."""
+
+    def __init__(self, whole: torch.Tensor, band: int, spatial: int):
+        self.whole, self.band, self.spatial = whole, band, spatial
+        self.rows = whole.shape[2] // spatial
+
+    def own(self) -> torch.Tensor:
+        return self.whole[:, :, self.band * self.rows:(self.band + 1) * self.rows].contiguous()
+
+    def halo(self, x, top, bottom):
+        r0 = self.band * self.rows
+        if not torch.equal(x, self.whole[:, :, r0:r0 + self.rows]):
+            raise AssertionError("a band op asked for the halo of rows not its band's")
+        lo = r0 - top if self.band > 0 else r0
+        hi = r0 + self.rows + bottom if self.band < self.spatial - 1 else r0 + self.rows
+        return self.whole[:, :, lo:hi].contiguous()
+
+
+def band_halo(name: str, args) -> int:
+    """The even halo each inner side of a band gets for K2-K4."""
+    from singlehdr_tpu_torch.models import hallucination, linearization
+
+    return {"unet_stage2": 2 * (args[1].shape[-1] // 2), "lin_feature_stem": linearization.K3_HALO,
+            "encoder_stage2": hallucination.K4_HALO}[name]
+
+
+def band_kernels(pipe, dev) -> dict:
+    """Phase 16 (b): K2, K4 (each stage of phase 3's cases) and K3 on the top
+    band, a middle band and the bottom band of SPATIAL_KERNEL_BANDS at
+    [KERNEL_BATCH, *, 576^2], in f32 and bf16: the kernel on the band
+    extended by its even halo against its plain version on the same
+    extended band, and its output cropped back to the band
+    (``on_extended_band``) against the rows of the plain version on the
+    whole tensor, both by phase 3's criteria (``compare_kernel``).  Returns
+    the worst reading of each (kernel, dtype)."""
+    from singlehdr_tpu_torch.parallel.mesh import on_extended_band
+
+    plain = plain_versions()
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        with torch.no_grad():  # as phase 3's: the packing is cached on the bf16 weights
+            cases = kernel_cases(pipe, dev, dtype, odd=False)
+        for name, label, args in cases:
+            if name == "apply_rf":
+                continue
+            kernel, ref = plain[name]
+            x, rest, halo = args[0], args[1:], band_halo(name, args)
+            with torch.inference_mode():
+                whole = ref(x, *rest)
+            whole = whole if isinstance(whole, tuple) else (whole,)
+            for band in (0, 1, SPATIAL_KERNEL_BANDS - 1):
+                sim = ExtendedBand(x, band, SPATIAL_KERNEL_BANDS)
+                ext = sim.halo(sim.own(), halo, halo)
+                with torch.inference_mode():
+                    _, _, rel_ext, eq_ext = compare_kernel(
+                        name, f"{label} band {band} extended {tuple(ext.shape)}", kernel, ref, (ext, *rest), dtype)
+                    got = on_extended_band(lambda t: kernel(t, *rest), sim.own(), halo, sim)
+                got = got if isinstance(got, tuple) else (got,)
+                want = tuple(w[:, :, band * w.shape[2] // sim.spatial:(band + 1) * w.shape[2] // sim.spatial]
+                             for w in whole)
+                _, _, rel_crop, eq_crop = compare_kernel(name, f"{label} band {band} cropped", lambda: got,
+                                                         lambda: want, (), dtype)
+                key = (name, str(dtype).removeprefix("torch."))
+                seen = worst.setdefault(key, {"rel_extended": 0.0, "rel_cropped": 0.0, "equal": 1.0, "cases": 0})
+                seen["rel_extended"] = max(seen["rel_extended"], rel_ext)
+                seen["rel_cropped"] = max(seen["rel_cropped"], rel_crop)
+                seen["equal"] = min(seen["equal"], eq_ext, eq_crop)
+                seen["cases"] += 1
+    for (name, dt), r in worst.items():
+        print(f"  {name} {dt} on bands 0, 1, {SPATIAL_KERNEL_BANDS - 1} of {SPATIAL_KERNEL_BANDS} "
+              f"({r['cases']} cases): kernel vs plain on the extended band, max rel err {r['rel_extended']:.3e}; "
+              f"cropped vs the whole plain output's rows {r['rel_cropped']:.3e}; least share bit-equal "
+              f"{r['equal']:.2%} (bounds: phase 3's)", flush=True)
+    return worst
+
+
+def spatial_path(dev, card: str, files: dict, work: str, refs: dict) -> tuple:
+    """Phase 16: the spatial mesh axis on the one card (gloo ranks sharing
+    it).  (a) ``tiled.shard_spatial`` on phase 12's first photo, 2 bands of
+    512 rows, f32 and bf16, against the one-process whole-photo forward of
+    the same seeded pipeline: f32 within PATH_REL_TOL of max|ref|, bf16
+    PSNR >= PATH_BF16_MIN_PSNR_DB against the f32 whole photo; each rank's
+    launches a forward (PER_BATCH) and the height of every K2-K4 input (its
+    band + the halo of each inner side); (b) ``band_kernels``; (c), (d) the
+    joint step (16 x 256^2, f32 and bf16) and the finetune step (4 x 256^2,
+    f32 and float64) on D=1 x S=2, (e) the f32 joint step on D=2 x S=2,
+    each held as phase 15 holds its ranks (``mesh_ranks_vs_one``); (f)
+    their launches: K1 and K1-bwd, K2-K4 never; (g) each spatial step's
+    time and its halo exchanges' share.  Returns the path's launches (the
+    ranks') and rank-forwards of (a), and its launches and rank-steps of
+    (c)-(e)."""
+    from singlehdr_tpu_torch.data.hdr_io import read_ldr
+    from singlehdr_tpu_torch.models import build_pipeline
+
+    photo = read_ldr(os.path.join(files["photos"], sorted(os.listdir(files["photos"]))[0])).astype(np.float32) / 255.0
+    root = os.path.join(work, "spatial")
+    os.makedirs(root)
+    np.save(os.path.join(root, "photo.npy"), photo)
+    pipe = build_pipeline(seed=SEED, device=dev)
+    with torch.inference_mode():
+        whole = pipe(torch.from_numpy(photo).to(dev).permute(2, 0, 1)[None].contiguous()).hdr
+        whole = whole[0].permute(1, 2, 0).cpu().numpy()
+    extra = [{"kind": "shard_spatial", "label": f"shard_spatial {dt}", "dtype": dt,
+              "photo": os.path.join(root, "photo.npy")} for dt in ("float32", "bfloat16")]
+
+    print("  (b) K2-K4 on extended bands", flush=True)
+    band_kernels(pipe, dev)
+    del pipe
+    torch.cuda.empty_cache()
+
+    print("  (a), (c), (d) on D=1 x S=2", flush=True)
+    _, _, ranks = mesh_ranks_vs_one(dev, card, refs, (1, SPATIAL_BANDS), extra=extra)
+    print("  (e) on D=2 x S=2", flush=True)
+    _, _, ranks22 = mesh_ranks_vs_one(dev, card, refs, (2, SPATIAL_BANDS), labels=("joint f32",))
+    forward_launches, step_launches, n_forwards, n_steps, failures = {}, {}, 0, 0, []
+    for r in (*ranks, *ranks22):
+        for label, res in r.items():
+            if label.startswith("shard_spatial"):
+                _add_counts(forward_launches, res["case_launches"])
+            elif isinstance(res, dict) and "case_steps" in res:
+                _add_counts(step_launches, res["case_launches"])
+                n_steps += res["case_steps"]
+                per = {k: sum(v.values()) for k, v in res["case_launches"].items()}
+                if res["case_steps"] and not (per["apply_rf"] > 0 and per["apply_rf_bwd"] > 0 and not any(
+                        per[k] for k in ("unet_stage2", "lin_feature_stem", "encoder_stage2"))):
+                    failures.append(f"{label}: a spatial step's launches {per}")
+    print(f"  (f) the spatial steps' launches {step_launches} over {n_steps} rank-steps "
+          f"(K1 and K1-bwd, K2-K4 never)", flush=True)
+    for case in extra:
+        label = case["label"]
+        got = ranks[0][label]["out"].numpy()
+        if got.shape != whole.shape or not np.isfinite(got).all():
+            raise AssertionError(f"{label}: output {got.shape}, finite {np.isfinite(got).all()}")
+        if not all(torch.equal(r[label]["out"], ranks[0][label]["out"]) for r in ranks if r[label]["out"] is not None):
+            failures.append(f"{label}: the ranks' outputs differ")
+        rel, db = float(np.abs(got - whole).max() / np.abs(whole).max()), psnr_db(got, whole)
+        if case["dtype"] == "float32":
+            held, bound = rel <= PATH_REL_TOL, f"rel <= {PATH_REL_TOL}"
+        else:
+            held, bound = db >= PATH_BF16_MIN_PSNR_DB, f"PSNR >= {PATH_BF16_MIN_PSNR_DB} dB"
+        if not held:
+            failures.append(f"{label}: rel {rel:.3e}, PSNR {db:.2f} dB ({bound})")
+        for s, r in enumerate(ranks):
+            res = r[label]
+            want_counts = {k: PER_BATCH.get(k, 0) for k in res["launches"]}
+            if res["launches"] != want_counts:
+                failures.append(f"{label} rank {s}: launches a forward {res['launches']} != {want_counts}")
+            band, sides = res["band"], (s > 0) + (s < SPATIAL_BANDS - 1)
+            want_h = {"unet_stage2": [band // f + sides * 2 * (k // 2) for f, k in ((1, 7), (2, 5), (4, 3))] * 2,
+                      "lin_feature_stem": [band + sides * 4], "encoder_stage2": [band + sides * 2, band // 2 + sides * 2]}
+            if res["heights"] != want_h:
+                failures.append(f"{label} rank {s}: K2-K4 input heights {res['heights']} != {want_h}")
+            n_forwards += res["forwards"]
+        print(f"  {label} on {SPATIAL_BANDS} bands of {ranks[0][label]['band']} rows vs the whole photo "
+              f"{photo.shape[:2]} in one process: max_abs_err {np.abs(got - whole).max():.3e}, rel {rel:.3e}, "
+              f"PSNR {db:.2f} dB ({bound}); launches a forward a rank {[r[label]['launches'] for r in ranks]}; "
+              f"K2-K4 input heights (rank 0) {ranks[0][label]['heights']}, widest "
+              f"{ {k: max(v) for k, v in ranks[0][label]['heights'].items()} } for a band of "
+              f"{ranks[0][label]['band']}; forward {ranks[0][label]['ms']:.2f} ms wall (median of "
+              f"{SPATIAL_TIMED_FORWARDS}; {SPATIAL_BANDS} processes sharing one card: not a scaling figure)  "
+              f"[{card}]", flush=True)
+    if failures:
+        raise AssertionError("the spatial path:\n  " + "\n  ".join(failures))
+    return forward_launches, n_forwards, step_launches, n_steps
 
 
 def checkpoint_tensors(directory: str, step=None) -> tuple:
@@ -2964,8 +3341,8 @@ def main() -> int:
 
 
 def run_training_and_real_paths(dev, card: str, report: dict, served: dict, work: str) -> int:
-    """Phases 9-15 and the last two lines, with phase 9's and phase 12's
-    files and checkpoints under ``work`` until phases 13-15 have read
+    """Phases 9-16 and the last two lines, with phase 9's and phase 12's
+    files and checkpoints under ``work`` until phases 13-16 have read
     them."""
     train_root = os.path.join(work, "train")
     os.makedirs(train_root)
@@ -3003,7 +3380,8 @@ def run_training_and_real_paths(dev, card: str, report: dict, served: dict, work
     phase("15 multi-device: two ranks on the card, --mesh 1 over NCCL")
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    mesh_launches, mesh_steps = mesh_two_ranks(dev, card, files, work)
+    refs = mesh_references(dev, files, work)
+    mesh_launches, mesh_steps, _ = mesh_ranks_vs_one(dev, card, refs)
     for launches, n in (mesh_clis(card, work, train_root, files), mesh_timings(dev, card)):
         _add_counts(mesh_launches, launches)
         mesh_steps += n
@@ -3014,12 +3392,22 @@ def run_training_and_real_paths(dev, card: str, report: dict, served: dict, work
             and not any(path_kernels[k] for k in ("unet_stage2", "lin_feature_stem", "encoder_stage2"))):
         raise AssertionError(f"the multi-device path's launches: {path_kernels}")
 
+    phase("16 spatial: bands of rows on ranks sharing the card")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    spatial_fwd, spatial_forwards, spatial_step, spatial_steps = spatial_path(dev, card, files, work, refs)
+    print(f"  spatial path launches: forwards {spatial_fwd} over {spatial_forwards} rank-forwards, steps "
+          f"{spatial_step} over {spatial_steps} rank-steps; phase 16: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
     # launches: the serving paths' (phase 4, both dtypes), the training
     # paths' (phase 9, both dtypes), the HDR-Real paths' (phase 12), the
     # interop path's (phase 13), the remat path's (phase 14, its steps and
     # CLIs) and the multi-device path's (phase 15: the ranks' steps, the
     # --mesh 1 CLI runs and the mesh steps timed; not the meshless runs they
-    # are compared with), of each (kernel, dtype); per serving batch of that
+    # are compared with) and the spatial path's (phase 16: its ranks'
+    # forwards and steps, not the one-process runs they are compared with nor
+    # the extended-band checks), of each (kernel, dtype); per serving batch of that
     # dtype's pipeline, per training step, per finetune step (f32 and bf16
     # runs), evaluate batch, whole photo and tile (the tiled runs less their
     # invCRF views), per phase 14 step (its CLIs not included) and per
@@ -3040,12 +3428,16 @@ def run_training_and_real_paths(dev, card: str, report: dict, served: dict, work
         n_interop = interop_launches[base].get(dt, 0)
         n_remat = remat_launches.get(base, {}).get(dt, 0)
         n_mesh = mesh_launches.get(base, {}).get(dt, 0)
+        n_spatial_fwd = spatial_fwd.get(base, {}).get(dt, 0)
+        n_spatial_step = spatial_step.get(base, {}).get(dt, 0)
         entry = {
             "name": name, "dtype": dt, "route": "cuda", "source": SOURCES[base][0],
             "replaces": SOURCES[base][1],
-            "launches": n_serve + n_train + sum(real.values()) + n_interop + n_remat + n_mesh,
+            "launches": (n_serve + n_train + sum(real.values()) + n_interop + n_remat + n_mesh
+                         + n_spatial_fwd + n_spatial_step),
             "launches_by_path": {"serving": n_serve, "training": n_train, **real, "interop": n_interop,
-                                 "remat": n_remat, "multi_device": n_mesh},
+                                 "remat": n_remat, "multi_device": n_mesh,
+                                 "spatial": n_spatial_fwd + n_spatial_step},
             "launches_per_batch": {
                 **{f"serving_{d}": serve[d] / batches[d] for d in serve},
                 "training_step": n_train / train_steps,
@@ -3056,7 +3448,9 @@ def run_training_and_real_paths(dev, card: str, report: dict, served: dict, work
                 "tiled_tile": (real["infer_tiled"] - views) / real_units["tiled_tile"],
                 "interop_image": n_interop / INTEROP_IMAGES,
                 "remat_step": remat_step_launches.get(base, {}).get(dt, 0) / remat_n,
-                "multi_device_step": n_mesh / mesh_steps},
+                "multi_device_step": n_mesh / mesh_steps,
+                "spatial_forward": n_spatial_fwd / spatial_forwards,
+                "spatial_step": n_spatial_step / spatial_steps},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": "operations" if r["ops_bound_ms"] >= r["bound_ms"] / 2 else "bytes",

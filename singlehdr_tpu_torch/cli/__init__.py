@@ -7,12 +7,7 @@ import contextlib
 import torch
 import torch.distributed as dist
 
-from singlehdr_tpu_torch.parallel.mesh import (
-    SPATIAL_UNSUPPORTED,
-    initialize_multihost,
-    make_mesh,
-    parse_mesh,
-)
+from singlehdr_tpu_torch.parallel.mesh import initialize_multihost, make_mesh, parse_mesh
 from singlehdr_tpu_torch.precision import use_full_f32
 
 
@@ -41,8 +36,8 @@ def add_dtype_arg(parser) -> None:
 
 def add_mesh_args(parser) -> None:
     """The JAX training CLIs' multi-device flags.  One port process drives
-    one device: a data mesh of D is D processes, each started with its
-    ``--process_id``."""
+    one device: a mesh of D x S is D * S processes, each started with its
+    ``--process_id`` (rank d * S + s is data index d, band s)."""
     parser.add_argument("--mesh", type=str, default="",
                         help="'D' or 'D,S': data(,spatial) mesh axes over devices")
     parser.add_argument("--coordinator", type=str, default=None,
@@ -53,15 +48,14 @@ def add_mesh_args(parser) -> None:
 
 @contextlib.contextmanager
 def process_mesh(args, device: torch.device):
-    """Within the block, (this process's device, its data mesh or None) from
+    """Within the block, (this process's device, its mesh or None) from
     ``add_mesh_args``' flags: joins the run's process group
     (``initialize_multihost``; NCCL on CUDA, gloo on the CPU), makes the
-    mesh, and leaves the group at the end.  A spatial axis, or more than one
-    process without a mesh (each would train the whole batch and write the
-    same checkpoints), raises before any process group is made."""
+    mesh, and leaves the group at the end.  More than one process without a
+    mesh (each would train the whole batch and write the same checkpoints)
+    raises before any process group is made; a mesh of another size than
+    the processes raises in ``make_mesh``."""
     spec = parse_mesh(args.mesh)
-    if spec is not None and spec[1] != 1:
-        raise ValueError(SPATIAL_UNSUPPORTED)
     if spec is None and args.num_processes > 1:
         raise ValueError(f"--num_processes {args.num_processes} needs --mesh {args.num_processes}: "
                          "the processes train one data mesh, one device each")
@@ -69,7 +63,7 @@ def process_mesh(args, device: torch.device):
                                        device, mesh=spec is not None)
     try:
         device = rank_device or device
-        yield device, None if spec is None else make_mesh(spec[0], device=device)
+        yield device, None if spec is None else make_mesh(*spec, device=device)
     finally:
         if rank_device is not None:
             dist.destroy_process_group()

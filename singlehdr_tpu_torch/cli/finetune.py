@@ -10,9 +10,10 @@ lr 1e-5, resuming from ``--ref_ckpt`` when it holds a checkpoint:
 Trains on CUDA, f32 with TF32 off; ``--device cpu`` trains on the CPU;
 ``--dtype bfloat16`` computes the nets in bf16 (f32 parameters and loss);
 ``--remat`` recomputes each net's forward in the backward instead of keeping
-its activations (``train.steps``); ``--mesh D`` trains on a data mesh of D
-processes, one a device, each started with ``--num_processes D --process_id
-r --coordinator host:port`` (``parallel``): ``--batch_size`` is the global
+its activations (``train.steps``); ``--mesh D,S`` trains on a mesh of D
+data indices x S bands of image rows, D * S processes, one a device, each
+started with ``--num_processes D*S --process_id r --coordinator host:port``
+(``parallel``; ``--mesh D`` is ``D,1``): ``--batch_size`` is the global
 batch, and a short tail batch is padded to a multiple of D by repeating its
 last sample, as in JAX (so with ``--mesh 1`` too).
 """

@@ -6,9 +6,10 @@
 
 Trains on CUDA, f32 with TF32 off; ``--device cpu`` trains on the CPU;
 ``--dtype bfloat16`` computes the nets in bf16 (f32 parameters and losses).
-``--mesh D`` trains on a data mesh of D processes, one a device, each
-started with ``--num_processes D --process_id r --coordinator host:port``
-(``parallel``); ``--batch_size`` is the global batch.
+``--mesh D,S`` trains on a mesh of D data indices x S bands of image rows,
+D * S processes, one a device, each started with ``--num_processes D*S
+--process_id r --coordinator host:port`` (``parallel``; ``--mesh D`` is
+``D,1``); ``--batch_size`` is the global batch.
 """
 
 from __future__ import annotations

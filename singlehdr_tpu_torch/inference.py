@@ -52,11 +52,14 @@ class HdrPredictor:
     """Shape-bucketed full-pipeline inference on one device.
 
     ``pipeline`` is a ``ReverseCameraPipeline`` already on its device; it is
-    switched to eval mode and run under ``torch.inference_mode()``.
+    switched to eval mode and run under ``torch.inference_mode()``.  With
+    ``use_refinement`` False the output is A_pred (``ref`` does not run).
     """
 
-    def __init__(self, pipeline: torch.nn.Module, bucket_multiple: int = MULTIPLE):
+    def __init__(self, pipeline: torch.nn.Module, bucket_multiple: int = MULTIPLE,
+                 use_refinement: bool = True):
         self.pipeline = pipeline.eval()
+        self.use_refinement = use_refinement
         self.bucket_multiple = bucket_multiple
         self.device = next(pipeline.parameters()).device
         # per padded-(h, w) bucket: batch sizes already run ("warm")
@@ -92,7 +95,7 @@ class HdrPredictor:
         with torch.inference_mode():
             x = torch.from_numpy(np.ascontiguousarray(batch_nhwc, np.float32))
             x = x.to(self.device).permute(0, 3, 1, 2).contiguous()
-            hdr = self.pipeline(x).hdr
+            hdr = self.pipeline(x, use_refinement=self.use_refinement).hdr
             return hdr.permute(0, 2, 3, 1).cpu().numpy()
 
     def __call__(self, rgb01: np.ndarray) -> np.ndarray:

@@ -14,6 +14,12 @@ reference's unused second conv of the up block is not reproduced.
 layer runs in it (K4 in its bf16 form for bf16), and the BGR residual comes
 back in f32, as in the Flax net.  A skip fusion folds the skip's 1/255 into
 its kernel rows in f32 before the cast, where the Flax net scales it.
+
+On a spatial mesh (``layers.bind_mesh``; the input is this rank's band of
+rows, H / S a multiple of 32) the 3x3 convs and the decoder's resizes
+exchange their halo rows, the 2x2 pools and the 1x1 fusions need none, and
+K4 runs unchanged on the band extended by 2 rows on each inner side, its
+outputs cropped back.
 """
 
 from __future__ import annotations
@@ -33,12 +39,16 @@ from singlehdr_tpu_torch.ops.color import VGG_MEAN_BGR, vgg_preprocess
 from singlehdr_tpu_torch.ops.cuda.conv_gemm import cached_on
 from singlehdr_tpu_torch.ops.cuda.enc_pool_cuda import encoder_stage2
 from singlehdr_tpu_torch.ops.resize import max_pool
+from singlehdr_tpu_torch.parallel.mesh import bands, on_extended_band
 
 _ENC = ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3))
+K4_HALO = 2  # rows on each inner side of a band: the two 3x3 convs' reach
 
 
 class EncoderStage(nn.Module):
     """n ReLU 3x3 convs then a 2x2/2 SAME max pool; returns (pooled, skip)."""
+
+    mesh = None
 
     def __init__(self, cin: int, features: int, n_convs: int, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -49,11 +59,15 @@ class EncoderStage(nn.Module):
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         if not self.training and self.n_convs == 2:
-            return encoder_stage2(x, self.conv1.compute_weight(), self.conv1.bias,
-                                  self.conv2.compute_weight(), self.conv2.bias)
+            w1, w2 = self.conv1.compute_weight(), self.conv2.compute_weight()
+
+            def stage(t):
+                return encoder_stage2(t, w1, self.conv1.bias, w2, self.conv2.bias)
+
+            return stage(x) if bands(self.mesh) == 1 else on_extended_band(stage, x, K4_HALO, self.mesh)
         for i in range(self.n_convs):
             x = torch.relu(getattr(self, f"conv{i + 1}")(x))
-        return max_pool(x, 2, 2), x
+        return max_pool(x, 2, 2, self.mesh), x
 
 
 class DecoderStage(nn.Module):

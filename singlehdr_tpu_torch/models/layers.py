@@ -22,9 +22,13 @@ statistics reduced in f32) and returns its input's dtype, as Flax's does, and
 in train mode in a narrow dtype is composed as Flax's, so that its backward
 rounds where JAX's does.  One f32 state_dict serves every dtype.
 
-On a data mesh (``bind_mesh``, which each train step of a replicated state
+On a mesh (``bind_mesh``, which each train step of a replicated state
 calls) train-mode BatchNorm takes its batch statistics over every rank's
-batch, as Flax's do over a batch sharded on a JAX mesh.
+batch, as Flax's do over a batch sharded on a JAX mesh.  On a spatial mesh
+(S > 1: each rank holds a band of image rows) a conv takes its halo rows
+from the neighbouring bands, the SAME padding of the global height (zeros
+at the image's edges), and runs VALID in H (``conv2d_same``); the
+bilinear resize of ``UpsampleConv`` takes one row each side.
 
 Module attribute names follow the Flax module names, so state_dict keys are
 the JAX parameter paths with dots (see ``convert.py``).
@@ -40,8 +44,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from singlehdr_tpu_torch.ops.cuda.conv_gemm import cached_on
-from singlehdr_tpu_torch.parallel.mesh import global_var_mean
-from singlehdr_tpu_torch.ops.resize import resize_bilinear_x2, same_pads
+from singlehdr_tpu_torch.parallel.mesh import bands, extend_rows, global_var_mean
+from singlehdr_tpu_torch.ops.resize import band_pads, resize_bilinear_x2, same_pads
 
 BN_EPSILON = 1e-3
 BN_MOMENTUM = 0.01  # torch convention; Keras momentum 0.99
@@ -62,9 +66,16 @@ def cast_param(module: nn.Module, name: str, dtype: torch.dtype):
     return cached_on(module, f"{name}:{dtype}", (p,), lambda: p.to(dtype))
 
 
-def conv2d_same(x, weight, bias=None, stride: int = 1):
-    """F.conv2d with TF 'SAME' padding."""
+def conv2d_same(x, weight, bias=None, stride: int = 1, mesh=None):
+    """F.conv2d with TF 'SAME' padding; on a spatial ``mesh`` of the global
+    height, ``x`` being this rank's band."""
     kh, kw = weight.shape[-2:]
+    if bands(mesh) > 1:
+        x = extend_rows(x, *band_pads(x, kh, stride, mesh), mesh)
+        if stride == 1 and kw % 2:
+            return F.conv2d(x, weight, bias, padding=(0, kw // 2))
+        pl, pr = same_pads(x.shape[3], kw, stride)
+        return F.conv2d(F.pad(x, (pl, pr, 0, 0)) if pl or pr else x, weight, bias, stride=stride)
     if stride == 1 and kh % 2 and kw % 2:
         return F.conv2d(x, weight, bias, padding=(kh // 2, kw // 2))
     pt, pb = same_pads(x.shape[2], kh, stride)
@@ -75,6 +86,8 @@ def conv2d_same(x, weight, bias=None, stride: int = 1):
 
 
 class Conv2d(nn.Module):
+    mesh = None  # bound by ``bind_mesh``; read on a spatial mesh
+
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -93,9 +106,9 @@ class Conv2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, w, bias = x.to(self.dtype), self.compute_weight(), cast_param(self, "bias", self.dtype)
         if bias is None or self.dtype == torch.float32:
-            return conv2d_same(x, w, bias, self.stride)
+            return conv2d_same(x, w, bias, self.stride, self.mesh)
         # Flax rounds the conv's output to the compute dtype, then adds the bias in it
-        return conv2d_same(x, w, None, self.stride) + bias[:, None, None]
+        return conv2d_same(x, w, None, self.stride, self.mesh) + bias[:, None, None]
 
 
 class UpsampleConv(Conv2d):
@@ -106,7 +119,7 @@ class UpsampleConv(Conv2d):
         super().__init__(cin, cout, 3, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(resize_bilinear_x2(x.to(self.dtype)))
+        return super().forward(resize_bilinear_x2(x.to(self.dtype), self.mesh))
 
 
 class Dense(nn.Module):
@@ -134,11 +147,12 @@ class BatchNorm(nn.Module):
     (``running_stats_frozen``).  With a ``mesh`` (``bind_mesh``) the batch
     statistics in train mode are the global batch's."""
 
+    mesh = None
+
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         self.update_stats = True
-        self.mesh = None
         self.weight = nn.Parameter(torch.empty(channels))
         self.bias = nn.Parameter(torch.empty(channels))
         self.register_buffer("running_mean", torch.empty(channels))
@@ -211,11 +225,24 @@ def running_stats_frozen(module: nn.Module):
 
 
 def bind_mesh(module: nn.Module, mesh) -> None:
-    """Every BatchNorm layer of ``module`` takes its train-mode statistics
-    over ``mesh`` (a ``parallel.DataMesh``), or over its own input for None."""
+    """Every layer of ``module`` that has a ``mesh`` runs on ``mesh`` (a
+    ``parallel.DataMesh``): BatchNorm takes its train-mode statistics over
+    every rank, and on a spatial mesh the convs, pools, resizes and fused
+    stages work on this rank's band; None unbinds."""
     for m in module.modules():
-        if isinstance(m, BatchNorm):
+        if hasattr(m, "mesh"):
             m.mesh = mesh
+
+
+@contextlib.contextmanager
+def mesh_bound(module: nn.Module, mesh):
+    """``module`` bound to ``mesh`` (``bind_mesh``) within the block, unbound
+    after it."""
+    bind_mesh(module, mesh)
+    try:
+        yield module
+    finally:
+        bind_mesh(module, None)
 
 
 def _glorot_(w: torch.Tensor, generator: torch.Generator) -> None:

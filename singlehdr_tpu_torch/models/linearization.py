@@ -26,8 +26,18 @@ from singlehdr_tpu_torch.ops.cuda.lin_stem_cuda import lin_feature_stem
 from singlehdr_tpu_torch.ops.curves import decode_invcrf, monotonic_rf
 from singlehdr_tpu_torch.ops.histogram import N_FEATURES, linearization_features
 from singlehdr_tpu_torch.ops.resize import max_pool
+from singlehdr_tpu_torch.parallel.mesh import bands, on_extended_band, spatial_sum
 
 N_PCA_WEIGHTS = 11
+K3_HALO = 4  # rows on each inner side of a band: Sobel's 1 + the stem's (2, 3), made even
+
+
+def feature_stem(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, mesh=None):
+    """K3 on ``x``; on a spatial ``mesh`` on the band extended by K3_HALO
+    rows on each inner side, cropped back."""
+    if bands(mesh) == 1:
+        return lin_feature_stem(x, kernel, bias)
+    return on_extended_band(lambda t: lin_feature_stem(t, kernel, bias), x, K3_HALO, mesh)
 
 
 class BottleneckResBlock(nn.Module):
@@ -59,6 +69,8 @@ class BottleneckResBlock(nn.Module):
 class CrfFeatureNet(nn.Module):
     """Feature stack + stem + max pool + res1..res5 + global average -> [b, 512]."""
 
+    mesh = None
+
     def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
@@ -87,17 +99,19 @@ class CrfFeatureNet(nn.Module):
         return cached_on(self, f"folded_stem:{self.dtype}", src, fold)
 
     def forward(self, ldr: torch.Tensor) -> torch.Tensor:
-        x = ldr.to(self.dtype)
+        x, mesh = ldr.to(self.dtype), self.mesh
         if self.training:
-            h = self.stem(linearization_features(x))
+            h = self.stem(linearization_features(x, mesh))
             h = torch.relu(self.stem_bn(h))
         else:
-            k, b = self.folded_stem()
-            h = lin_feature_stem(x, k, b)
-        h = max_pool(h, 3, 2)
+            h = feature_stem(x, *self.folded_stem(), mesh)
+        h = max_pool(h, 3, 2, mesh)
         for block in (self.res1, self.res2, self.res3, self.res4, self.res5):
             h = block(h)
-        return h.mean(dim=(2, 3))
+        if bands(mesh) == 1:
+            return h.mean(dim=(2, 3))
+        n = h.shape[2] * h.shape[3] * mesh.spatial
+        return (spatial_sum(at_least_f32(h).sum(dim=(2, 3)), mesh) / n).to(h.dtype)
 
 
 class LinearizationNet(nn.Module):

@@ -6,11 +6,13 @@
     B_pred = apply_rf(C_pred, invcrf)          (K1)
     alpha  = highlight_alpha(B_pred)
     A_pred = B_pred + alpha * bgr_to_rgb(hal(B_pred))
-    hdr    = ref(concat[A_pred, B_pred, C_pred])
+    hdr    = ref(concat[A_pred, B_pred, C_pred])   (A_pred without refinement)
 
 hal is fed B_pred, as in the reference's inference script.  ``dtype`` is the
 four nets' compute dtype (f32 or bf16): each net returns f32, so ``apply_rf``
-(K1), the mask and the blend stay f32, and ``hdr`` is f32 in both.
+(K1), the mask and the blend stay f32, and ``hdr`` is f32 in both.  On a spatial mesh (``layers.mesh_bound``) the
+input is this rank's band of rows and so is every output but ``invcrf``,
+which every band of an image holds whole.
 """
 
 from __future__ import annotations
@@ -40,27 +42,32 @@ class PipelineOutputs:
     b_pred: torch.Tensor   # linearized irradiance
     alpha: torch.Tensor    # highlight blend mask
     a_pred: torch.Tensor   # hallucinated HDR
-    hdr: torch.Tensor      # refined output
+    hdr: torch.Tensor      # refined output (a_pred when refinement is off)
 
 
 class ReverseCameraPipeline(nn.Module):
-    """Full 4-net single-image HDR reconstruction."""
+    """Full 4-net single-image HDR reconstruction.  Without refinement
+    (``use_refinement``, or the forward's argument) ``ref`` does not run and
+    ``hdr`` is ``a_pred``; its weights stay, as in the Flax pipeline."""
 
-    def __init__(self, dtype: torch.dtype = torch.float32):
+    def __init__(self, dtype: torch.dtype = torch.float32, use_refinement: bool = True):
         super().__init__()
         self.dtype = dtype
+        self.use_refinement = use_refinement
         self.deq = DequantizationNet(dtype)
         self.lin = LinearizationNet(dtype)
         self.hal = HallucinationNet(dtype)
         self.ref = RefinementNet(dtype)
 
-    def forward(self, ldr: torch.Tensor) -> PipelineOutputs:
+    def forward(self, ldr: torch.Tensor, use_refinement: bool | None = None) -> PipelineOutputs:
+        if use_refinement is None:
+            use_refinement = self.use_refinement
         c_pred = torch.clamp(self.deq(ldr), 0.0, 1.0)
         invcrf = self.lin(c_pred)
         b_pred = apply_rf(c_pred, invcrf)
         alpha = highlight_alpha(b_pred)
         a_pred = b_pred + alpha * bgr_to_rgb(self.hal(b_pred))
-        hdr = self.ref(torch.cat([a_pred, b_pred, c_pred], dim=1))
+        hdr = self.ref(torch.cat([a_pred, b_pred, c_pred], dim=1)) if use_refinement else a_pred
         return PipelineOutputs(c_pred, invcrf, b_pred, alpha, a_pred, hdr)
 
 

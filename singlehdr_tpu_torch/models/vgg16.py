@@ -7,7 +7,9 @@ reference's ``vgg16.npy`` dict when the file exists, else from the JAX
 package's seeded He surrogate, drawn in the same order from the same
 ``np.random.RandomState(42)`` so that both packages hold identical weights.
 ``dtype`` is the compute dtype of its convs (the CLIs keep it f32, as the JAX
-package's do); the pools come out in it.
+package's do); the pools come out in it.  On a spatial mesh
+(``layers.bind_mesh``) its convs exchange their halo rows; its 2x2 pools
+need none.
 """
 
 from __future__ import annotations
@@ -60,6 +62,8 @@ def load_vgg16_params(npy_path: str | None = None) -> Params:
 class Vgg16Features(nn.Module):
     """rgb01 [b, 3, h, w] -> (pool1, pool2, pool3); frozen and always in eval."""
 
+    mesh = None
+
     def __init__(self, params: Params | None = None, npy_path: str | None = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -85,6 +89,6 @@ class Vgg16Features(nn.Module):
         for name, _, _ in _LAYERS:
             x = torch.relu(getattr(self, name)(x))
             if name in _POOL_AFTER:
-                x = max_pool(x, 2, 2)
+                x = max_pool(x, 2, 2, self.mesh)
                 pools.append(x)
         return tuple(pools)

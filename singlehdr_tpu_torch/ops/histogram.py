@@ -28,13 +28,14 @@ def soft_histogram(img: torch.Tensor, n_bins: int) -> torch.Tensor:
     return resp.reshape(b, n_bins * c, h, w)
 
 
-def linearization_features(img: torch.Tensor) -> torch.Tensor:
+def linearization_features(img: torch.Tensor, mesh=None) -> torch.Tensor:
     """[b, 3, h, w] -> [b, 93, h, w]: [img, sobel(6), hist4, hist8, hist16],
     in the working type of ``img``.  A bf16 stack is computed in f32 from the
     bf16 image and each feature is rounded once, where K3's kernel rounds (the
     JAX package lets XLA round its bf16 Sobel and histogram arithmetic at
-    points of its own; ``tests/test_torch_bf16.py`` bounds the difference)."""
+    points of its own; ``tests/test_torch_bf16.py`` bounds the difference).
+    On a spatial ``mesh`` ``img`` is a band (``sobel_edges``' halo)."""
     x = img.float() if img.dtype == torch.bfloat16 else img
-    parts = [x, sobel_edges(x)]
+    parts = [x, sobel_edges(x, mesh)]
     parts += [soft_histogram(x, n) for n in HISTOGRAM_BINS]
     return torch.cat(parts, dim=1).to(img.dtype)

@@ -1,15 +1,21 @@
-"""Large-image inference in overlapping tiles (counterpart of
-``TiledPredictor`` in ``singlehdr_tpu.tiled``).
+"""Large-image inference: overlapping tiles, and rows split over devices
+(counterparts of ``TiledPredictor`` and ``shard_spatial`` in
+``singlehdr_tpu.tiled``).
 
-The image is split into ``tile``-sized tiles with ``halo`` overlap, the
+``TiledPredictor``: the image is split into ``tile``-sized tiles with ``halo`` overlap, the
 pipeline's stages run tile by tile, and the overlaps are blended with linear
 feathering.  The inverse CRF is global image state (the Linearization-Net
 pools over the whole image), so it is estimated once, from an ``INTER_AREA``
 view of the whole image, and applied to every tile; the convolutional stages
 (deq, hal, ref) are local up to their receptive field, which the halo
 covers.  Every tile has one shape, so any image size runs the same kernels
-at the same shapes.  The JAX package's ``shard_spatial`` (rows sharded over
-devices) has no counterpart yet.
+at the same shapes.
+
+``shard_spatial``: the exact whole pipeline with the image's rows split over
+the S bands of a spatial mesh, one rank each; every conv, pool and resize
+exchanges its halo rows with the neighbouring bands, the fused kernels run
+on bands extended by their reach, and lin's pooled features are summed over
+the bands (``parallel.mesh``).  No rank runs the whole image.
 """
 
 from __future__ import annotations
@@ -17,9 +23,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from singlehdr_tpu_torch.models.layers import mesh_bound
 from singlehdr_tpu_torch.ops.color import bgr_to_rgb
 from singlehdr_tpu_torch.ops.cuda.apply_rf_cuda import apply_rf
 from singlehdr_tpu_torch.ops.masks import highlight_alpha
+from singlehdr_tpu_torch.parallel.mesh import band_rows, gather_rows
+
+# every band's height divides by hal's five 2x2 pools, so that each pool's
+# grid keeps the band boundaries
+BAND_MULTIPLE = 32
 
 
 def _feather_weights(size: int, halo: int) -> np.ndarray:
@@ -50,15 +62,17 @@ class TiledPredictor:
       tile: tile edge, a multiple of 64.
       halo: overlap between tiles (>= the conv stacks' receptive-field radius).
       invcrf_view: edge of the whole-image view the inverse CRF is estimated on.
+      use_refinement: False returns each tile's A_pred (``ref`` does not run).
     """
 
     def __init__(self, pipeline: torch.nn.Module, tile: int = 512, halo: int = 64,
-                 invcrf_view: int = 256):
+                 invcrf_view: int = 256, use_refinement: bool = True):
         if tile % 64:
             raise ValueError("tile must be a multiple of 64")
         self.pipeline = pipeline.eval()
         self.device = next(pipeline.parameters()).device
         self.tile, self.halo, self.invcrf_view = tile, halo, invcrf_view
+        self.use_refinement = use_refinement
 
     def _tensor(self, rgb01: np.ndarray) -> torch.Tensor:
         x = torch.from_numpy(np.ascontiguousarray(rgb01, np.float32))
@@ -71,7 +85,7 @@ class TiledPredictor:
             c = torch.clamp(p.deq(self._tensor(tile_ldr)), 0.0, 1.0)
             b = apply_rf(c, invcrf)
             a = b + highlight_alpha(b) * bgr_to_rgb(p.hal(b))
-            out = p.ref(torch.cat([a, b, c], dim=1))
+            out = p.ref(torch.cat([a, b, c], dim=1)) if self.use_refinement else a
             return out[0].permute(1, 2, 0).cpu().numpy()
 
     def global_invcrf(self, rgb01: np.ndarray) -> torch.Tensor:
@@ -108,3 +122,27 @@ class TiledPredictor:
                 acc[y:y + th, x0:x0 + tw] += tile_out[:th, :tw] * blend[:th, :tw]
                 norm[y:y + th, x0:x0 + tw] += blend[:th, :tw]
         return acc / np.maximum(norm, 1e-8)
+
+
+def shard_spatial(pipeline: torch.nn.Module, rgb01: np.ndarray, mesh,
+                  use_refinement: bool = True) -> np.ndarray:
+    """The whole pipeline on ``rgb01`` ([h, w, 3] float32 RGB in [0, 1]) with
+    its rows split over ``mesh``'s S bands -> the [h, w, 3] float32 HDR on
+    every rank of the data index.
+
+    Every rank of a data index calls it with the same photo; each runs the
+    ``pipeline`` (a ``ReverseCameraPipeline`` on this rank's device, in eval
+    mode) on its band of h / S rows and the halo rows its layers exchange,
+    and the bands' outputs are gathered.  h must be a multiple of S * 32, so
+    that every band's rows divide by hal's five pools (the JAX function asks
+    for S * 64, more than its nets need)."""
+    h = rgb01.shape[0]
+    if h % (mesh.spatial * BAND_MULTIPLE):
+        raise ValueError(f"shard_spatial needs a height that divides by {mesh.spatial} x "
+                         f"{BAND_MULTIPLE}, got {h}")
+    device = next(pipeline.parameters()).device
+    band = band_rows(mesh, np.ascontiguousarray(rgb01, np.float32)[None])
+    x = torch.from_numpy(np.ascontiguousarray(band)).to(device).permute(0, 3, 1, 2).contiguous()
+    with torch.inference_mode(), mesh_bound(pipeline.eval(), mesh):
+        hdr = gather_rows(pipeline(x, use_refinement=use_refinement).hdr, mesh)
+    return hdr[0].permute(1, 2, 0).cpu().numpy()

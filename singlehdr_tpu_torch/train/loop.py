@@ -13,8 +13,8 @@ the next batch overlaps the current step.
 
 Both loops take JAX's ``mesh`` (a ``parallel.DataMesh``): they restore the
 checkpoint on every rank, replicate rank 0's state, train each rank on its
-share of the global batch, and write checkpoints and summaries on rank 0
-only.
+share of the global batch (its samples and, on a spatial mesh, its band of
+their rows), and write checkpoints and summaries on rank 0 only.
 """
 
 from __future__ import annotations
@@ -31,7 +31,13 @@ import torch
 
 from singlehdr_tpu_torch.data.jpeg import jpeg_roundtrip_batch
 from singlehdr_tpu_torch.data.loader import RandomSampleLoader
-from singlehdr_tpu_torch.parallel.mesh import local_rows, replicate
+from singlehdr_tpu_torch.parallel.mesh import (
+    band_rows,
+    bands,
+    check_same_on_bands,
+    local_rows,
+    replicate,
+)
 from singlehdr_tpu_torch.ops.degradation import (
     jpeg_quality_ladder,
     loss_mask_from_levels,
@@ -217,18 +223,25 @@ class _Prefetcher:
 
 
 def rank_feed(cfg: LoopConfig, mesh) -> LoopConfig:
-    """The loop config of one rank's feed on a data mesh: its share of
-    ``cfg.batch_size`` (the global batch, as in JAX) and its seed,
-    ``cfg.seed`` itself on rank 0 (a mesh of 1 draws what the meshless loop
-    draws) and one drawn from ``(cfg.seed, rank)`` on the others, so that no
-    two ranks draw the same samples, exposures, curves or noise."""
+    """The loop config of one rank's feed on a mesh: its data index's share
+    of ``cfg.batch_size`` (the global batch, as in JAX) and its seed,
+    ``cfg.seed`` itself on data index 0 (a mesh of 1 draws what the meshless
+    loop draws) and one drawn from ``(cfg.seed, d)`` on the others, so that
+    no two data indices draw the same samples, exposures, curves or noise.
+    The S ranks of one data index draw the same samples, and each keeps its
+    band of their rows: S times the feed's work for one data index's.  For
+    S > 1 the feed has one loader worker and one producer, so that its
+    samples, their augmentations and the capture's draws come in one order
+    (several threads share the dataset's and the capture's generators in no
+    fixed order)."""
     if mesh is None:
         return cfg
-    if cfg.batch_size % mesh.world:
-        raise ValueError(f"batch {cfg.batch_size} does not split over a data mesh of {mesh.world}")
-    seed = cfg.seed if mesh.rank == 0 else int(
-        np.random.SeedSequence([cfg.seed, mesh.rank]).generate_state(1)[0])
-    return dataclasses.replace(cfg, batch_size=cfg.batch_size // mesh.world, seed=seed)
+    if cfg.batch_size % mesh.data:
+        raise ValueError(f"batch {cfg.batch_size} does not split over a data mesh of {mesh.data}")
+    seed = cfg.seed if mesh.data_rank == 0 else int(
+        np.random.SeedSequence([cfg.seed, mesh.data_rank]).generate_state(1)[0])
+    cfg = dataclasses.replace(cfg, batch_size=cfg.batch_size // mesh.data, seed=seed)
+    return cfg if bands(mesh) == 1 else dataclasses.replace(cfg, n_workers=1, prefetch_producers=1)
 
 
 class _NoWriter:
@@ -259,8 +272,11 @@ def run_synth_training(*, module_name: str, state: TrainState, step_fn: Callable
     and each rank's feed makes its own ``cfg.batch_size / world`` samples a
     step, seeded from ``(cfg.seed, rank)`` (``rank_feed``): the ranks draw
     apart, as the JAX package's processes do, with no stronger guarantee
-    (the union of a step is not the meshless loop's batch).  Rank 0 alone saves and logs;
-    the logged loss is the global batch's."""
+    (the union of a step is not the meshless loop's batch); on a spatial
+    mesh the S ranks of a data index draw the same samples (held by a
+    checksum each step, ``check_same_on_bands``) and each trains on its
+    band of their rows.  Rank 0 alone saves and logs; the logged
+    loss is the global batch's."""
     lead = mesh is None or mesh.rank == 0
     owned_writer = writer is None
     writer = (writer or MetricsWriter(log_dir)) if lead else _NoWriter()
@@ -269,13 +285,17 @@ def run_synth_training(*, module_name: str, state: TrainState, step_fn: Callable
     if mesh is not None:
         state = replicate(mesh, state)
     start_step = state.step
-    pipeline = SynthBatchPipeline(dataset, rank_feed(cfg, mesh), state.device)
-    prefetcher = _Prefetcher(pipeline.next_batch, cfg.prefetch, cfg.prefetch_producers)
+    feed = rank_feed(cfg, mesh)
+    pipeline = SynthBatchPipeline(dataset, feed, state.device)
+    prefetcher = _Prefetcher(pipeline.next_batch, feed.prefetch, feed.prefetch_producers)
     tracker = Mean(f"loss_{module_name}")
     try:
         while state.step < cfg.iterations:
             t0 = time.perf_counter()
             batch = prefetcher.next()
+            if bands(mesh) > 1:
+                check_same_on_bands(mesh, list(batch.values()))
+                batch = band_rows(mesh, batch, spatial_dim=2)
             loss, aux = step_fn(state, *batch_to_args(batch))
             step = state.step
             tracker.update(float(loss))
@@ -334,8 +354,10 @@ def run_real_finetune(*, state: TrainState, step_fn: Callable, pipeline, epochs:
 
     With a data ``mesh`` every rank restores, rank 0's state is replicated,
     every rank reads the same epoch (the pipeline's seed) and trains on its
-    rows of each batch, a short batch padded first (``pad_tail``, JAX's
-    rule): a step's union over the ranks is the padded global batch.  Rank 0
+    share of each batch (its samples and, on a spatial mesh, its band of
+    their rows), a short batch padded first over the D data indices
+    (``pad_tail``, JAX's rule): a step's union over the ranks is the padded
+    global batch.  Rank 0
     alone saves and logs; the logged losses are the global batch's."""
     lead = mesh is None or mesh.rank == 0
     owned_writer = writer is None
@@ -355,7 +377,7 @@ def run_real_finetune(*, state: TrainState, step_fn: Callable, pipeline, epochs:
             for batch in pipeline.epoch():
                 if mesh is not None:
                     full_bs = full_bs or len(batch[0])
-                    batch = local_rows(mesh, pad_tail(batch, full_bs, mesh.world))
+                    batch = local_rows(mesh, pad_tail(batch, full_bs, mesh.data))
                 _, aux = step_fn(state, *upload_pair(*batch, state.device))
                 losses.push(aux["loss_ref"])
             for v in losses.drain():

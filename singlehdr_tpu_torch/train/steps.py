@@ -32,15 +32,27 @@ checkpointing, JAX's policy on ``conv_general_dilated``/``dot_general``).
 recompute leaves the BatchNorm running statistics alone
 (``layers.running_stats_frozen``): they move once a step, as without remat.
 
-On a data mesh (a state that ``parallel.replicate`` put on one) a step is
-the single-process step on the global batch, each rank holding its share:
-the nets' BatchNorm layers take global statistics (``layers.bind_mesh``),
-hal's TV term is global (each loss function takes the ``mesh``; the other
-reductions are per sample), the gradients are all-reduced with a SUM
-between ``backward()`` and ``optimizer.step()``, and the returned loss and
-the aux means (``crf_mse``, ``loss_ref``) are the global batch's.  Every
-rank runs the same forward and backward, so their collectives, the remat
-recompute's among them, come in one order.
+On a mesh (a state that ``parallel.replicate`` put on one) a step is the
+single-process step on the global batch, each rank holding its share:
+the nets' BatchNorm layers take global statistics (``layers.bind_mesh``,
+which binds the VGG of the perceptual loss too), hal's TV term is global
+(each loss function takes the ``mesh``; the other reductions are per
+sample), the gradients are all-reduced with a SUM between ``backward()``
+and ``optimizer.step()``, and the returned loss and the aux means
+(``crf_mse``, ``loss_ref``) are the global batch's.  Every rank runs the
+same forward and backward, so their collectives, the halo exchanges and
+the remat recompute's among them, come in one order.
+
+On a spatial mesh (S > 1) the image tensors are this rank's bands of rows
+and the nets work on bands (their layers exchange halo rows).  Each rank
+differentiates its share of the global objective, the shares adding up to
+it once: the per-sample losses are whole on every band (the means over
+pixels are sums over the bands, ``losses.per_sample_mean``, and
+``crf_mse``, lin's head and the TV scalar are whole anyway), so a band
+takes 1/S of their sum (``losses.scalar_from_per_sample``); the spatial
+sums' backward hands every band the gradient of the whole.  The finetune
+objective is a sum over pixels: a band's own sum is its share.  The
+returned aux tensors are this rank's (its samples, its band).
 """
 
 from __future__ import annotations
@@ -56,7 +68,12 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 from singlehdr_tpu_torch.models.layers import bind_mesh, running_stats_frozen
 from singlehdr_tpu_torch.ops.color import bgr_to_rgb
 from singlehdr_tpu_torch.ops.curves import apply_rf
-from singlehdr_tpu_torch.ops.losses import hallucination_loss, masked_l2, scalar_from_per_sample
+from singlehdr_tpu_torch.ops.losses import (
+    hallucination_loss,
+    masked_l2,
+    per_sample_mean,
+    scalar_from_per_sample,
+)
 from singlehdr_tpu_torch.ops.masks import clip, highlight_alpha
 from singlehdr_tpu_torch.ops.tonemap import mu_tonemap
 from singlehdr_tpu_torch.parallel.mesh import all_reduce_gradients, global_scalars
@@ -92,16 +109,16 @@ def _crf_mse(pred_invcrf, invcrf_gt):
 
 def deq_loss(nets, ldr, jpeg, mask, mesh=None):
     pred = clip(nets["deq"](jpeg), 0.0, 1.0)
-    per_sample = masked_l2(pred, ldr, mask)
-    return scalar_from_per_sample(per_sample), {"loss_deq": per_sample}
+    per_sample = masked_l2(pred, ldr, mask, mesh)
+    return scalar_from_per_sample(per_sample, mesh), {"loss_deq": per_sample}
 
 
 def lin_loss(nets, ldr, clipped_hdr_t, mask, invcrf_gt, mesh=None):
     pred_invcrf = nets["lin"](ldr)
     pred_lin = apply_rf(ldr, pred_invcrf)
     crf_mse = _crf_mse(pred_invcrf, invcrf_gt)
-    per_sample = (masked_l2(pred_lin, clipped_hdr_t) + PRETRAIN_WEIGHTS.crf * crf_mse) * mask
-    return scalar_from_per_sample(per_sample), {"loss_lin": per_sample, "crf_mse": crf_mse.mean()}
+    per_sample = (masked_l2(pred_lin, clipped_hdr_t, mesh=mesh) + PRETRAIN_WEIGHTS.crf * crf_mse) * mask
+    return scalar_from_per_sample(per_sample, mesh), {"loss_lin": per_sample, "crf_mse": crf_mse.mean()}
 
 
 def hal_loss(nets, vgg, hdr_t, clipped_hdr_t, mask, mesh=None):
@@ -109,22 +126,22 @@ def hal_loss(nets, vgg, hdr_t, clipped_hdr_t, mask, mesh=None):
     y = clipped_hdr_t + alpha * bgr_to_rgb(nets["hal"](clipped_hdr_t))
     per_sample = hallucination_loss(y, hdr_t, vgg, mask, perceptual_weight=PRETRAIN_WEIGHTS.perceptual,
                                     tv_weight=PRETRAIN_WEIGHTS.tv, mesh=mesh)
-    return scalar_from_per_sample(per_sample), {"loss_hal": per_sample, "y_final": y}
+    return scalar_from_per_sample(per_sample, mesh), {"loss_hal": per_sample, "y_final": y}
 
 
 def joint_loss(nets, vgg, ldr, jpeg, clipped_hdr_t, hdr_t, mask, invcrf_gt, mesh=None):
     alpha = highlight_alpha(clipped_hdr_t)
     c_pred = clip(nets["deq"](jpeg), 0.0, 1.0)
-    loss_deq = masked_l2(c_pred, ldr, mask)
+    loss_deq = masked_l2(c_pred, ldr, mask, mesh)
     pred_invcrf = nets["lin"](ldr)
     b_pred = apply_rf(ldr, pred_invcrf)
     crf_mse = _crf_mse(pred_invcrf, invcrf_gt)
-    loss_lin = (JOINT_WEIGHTS.lin_l2 * masked_l2(b_pred, clipped_hdr_t)
+    loss_lin = (JOINT_WEIGHTS.lin_l2 * masked_l2(b_pred, clipped_hdr_t, mesh=mesh)
                 + JOINT_WEIGHTS.crf * crf_mse) * mask
     a_pred = clipped_hdr_t + alpha * bgr_to_rgb(nets["hal"](clipped_hdr_t))
     loss_hal = hallucination_loss(a_pred, hdr_t, vgg, mask, perceptual_weight=JOINT_WEIGHTS.perceptual,
                                   tv_weight=JOINT_WEIGHTS.tv, mesh=mesh)
-    total = scalar_from_per_sample(loss_deq + loss_lin + loss_hal)
+    total = scalar_from_per_sample(loss_deq + loss_lin + loss_hal, mesh)
     aux = {"loss_deq": loss_deq, "loss_lin": loss_lin, "loss_hal": loss_hal,
            "crf_mse": crf_mse.mean(), "c_pred": c_pred, "b_pred": b_pred, "a_pred": a_pred,
            "alpha": alpha}
@@ -139,7 +156,7 @@ def finetune_loss(nets, ldr, hdr, mesh=None):
     a_pred = b_pred + alpha * bgr_to_rgb(nets["hal"](b_pred))
     out = nets["ref"](torch.cat([a_pred, b_pred, c_pred], dim=1))
     # renormalise the output mean to 0.5 before the log-domain L1
-    out = out / (1e-6 + torch.mean(out, dim=(1, 2, 3), keepdim=True)) * 0.5
+    out = out / (1e-6 + per_sample_mean(out, mesh)) * 0.5
     loss_map = torch.abs(mu_tonemap(out) - mu_tonemap(hdr))
     aux = {"loss_ref": loss_map.mean(), "c_pred": c_pred, "b_pred": b_pred, "a_pred": a_pred,
            "out": out}
@@ -195,7 +212,8 @@ def _step(loss_fn: Callable, dtype: torch.dtype, *bound, remat=False) -> Callabl
         if state.dtype != dtype:
             raise ValueError(f"a {dtype} train step called on nets that compute in {state.dtype}")
         state.nets.train()
-        bind_mesh(state.nets, state.mesh)
+        for module in (state.nets, *(b for b in bound if isinstance(b, torch.nn.Module))):
+            bind_mesh(module, state.mesh)
         nets = {name: _checkpointed(net, remat) for name, net in state.nets.items()}
         loss, aux = loss_fn(nets, *bound, *batch, mesh=state.mesh)
         apply_gradients(state, loss)

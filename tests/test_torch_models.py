@@ -130,6 +130,37 @@ def test_pipeline_matches_jax():
     assert kernels.launch_counts() == {n: 0 for n in kernels.KERNELS}
 
 
+def test_pipeline_without_refinement_matches_jax():
+    """``use_refinement=False`` (JAX's ``ReverseCameraPipeline`` attribute):
+    ``hdr`` is A_pred and ``ref`` does not run, on the module and as the
+    forward's argument, and through ``HdrPredictor`` and ``TiledPredictor``
+    (one tile the whole image)."""
+    from singlehdr_tpu_torch.inference import HdrPredictor
+    from singlehdr_tpu_torch.tiled import TiledPredictor
+
+    shape = (1, 64, 64, 3)
+    variables = seeded_variables(jm.ReverseCameraPipeline(), shape, seed=4)
+    x = _input(shape, seed=2)
+    jpipe = jm.ReverseCameraPipeline(use_refinement=False)
+    want = np.asarray(jax.jit(lambda v, a: jpipe.apply(v, a).hdr)(variables, jnp.asarray(x)))
+    pipe = load_jax_variables(tm.ReverseCameraPipeline(use_refinement=False), variables).eval()
+    ran = []
+    pipe.ref.register_forward_hook(lambda *a: ran.append(1))
+    with torch.inference_mode():
+        out = pipe(_nchw(x))
+        again = load_jax_variables(tm.ReverseCameraPipeline(), variables).eval()(_nchw(x), use_refinement=False)
+    assert not ran and out.hdr is out.a_pred
+    np.testing.assert_allclose(out.hdr.permute(0, 2, 3, 1).numpy(), want, atol=ATOL)
+    assert torch.equal(again.hdr, out.hdr)
+    whole = load_jax_variables(tm.ReverseCameraPipeline(), variables).eval()
+    with torch.inference_mode():
+        a_pred = whole(_nchw(x)).a_pred[0].permute(1, 2, 0).numpy()
+    np.testing.assert_array_equal(HdrPredictor(whole, use_refinement=False)._forward(x)[0], a_pred)
+    # one 64^2 tile, its curve from the 64^2 view: the image itself
+    tiled = TiledPredictor(whole, tile=64, halo=16, invcrf_view=64, use_refinement=False)(x[0])
+    np.testing.assert_allclose(tiled, a_pred, atol=1e-6)
+
+
 def test_constructors_turn_tf32_off():
     """``build_pipeline`` and ``init_multi_state``/``init_net_state`` set the
     package's precision policy (full f32 convolutions and matmuls), whatever

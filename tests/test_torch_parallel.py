@@ -445,7 +445,7 @@ def test_mesh_axes_and_their_errors(tmp_path):
     assert parse_mesh("") is None and parse_mesh("4") == (4, 1) and parse_mesh("2,3") == (2, 3)
     with pytest.raises(ValueError, match="D,S"):
         parse_mesh("2,2,2")
-    with pytest.raises(ValueError, match="shard_spatial"):
+    with pytest.raises(RuntimeError, match="process group"):
         make_mesh(2, spatial=2, device="cpu")
     with pytest.raises(RuntimeError, match="process group"):
         make_mesh(1, device="cpu")
@@ -453,8 +453,14 @@ def test_mesh_axes_and_their_errors(tmp_path):
     try:
         mesh = make_mesh(1, device="cpu")
         assert (mesh.rank, mesh.world, mesh.device) == (0, 1, torch.device("cpu"))
+        assert (mesh.spatial, mesh.spatial_group, mesh.data, mesh.band) == (1, None, 1, 0)
         with pytest.raises(ValueError, match="needs 3 processes"):
             make_mesh(3, device="cpu")
+        # D x S must be the group's size: a spatial axis of 2 over one process
+        with pytest.raises(ValueError, match="a mesh of 2 x 2 needs 4 processes"):
+            make_mesh(2, spatial=2, device="cpu")
+        with pytest.raises(ValueError, match="a mesh of 1 x 2 needs 2 processes"):
+            make_mesh(1, spatial=2, device="cpu")
         with pytest.raises(ValueError, match="device"):
             make_mesh(1)
     finally:
@@ -807,8 +813,8 @@ def test_cli_mesh_flags_reach_initialize_multihost_and_the_loop(cli, monkeypatch
         seen["init"] = (coordinator, num_processes, process_id, str(device), mesh)
         return torch.device("cpu")
 
-    def fake_make_mesh(data, device):
-        seen["make_mesh"] = (data, str(device))
+    def fake_make_mesh(data, spatial=1, device=None):
+        seen["make_mesh"] = (data, spatial, str(device))
         return fake_mesh
 
     def fake_loop(**kw):
@@ -835,11 +841,18 @@ def test_cli_mesh_flags_reach_initialize_multihost_and_the_loop(cli, monkeypatch
         flags = flags[:-2]
     module.run(module.build_parser().parse_args(first + flags))
     assert seen["init"] == ("10.0.0.1:1234", 2, 1, "cpu", True)
-    assert seen["make_mesh"] == (2, "cpu")
+    assert seen["make_mesh"] == (2, 1, "cpu")
     assert seen["loop_mesh"] is fake_mesh and seen["device"] == "cpu" and seen["left"]
 
-    with pytest.raises(ValueError, match="shard_spatial"):
-        module.run(module.build_parser().parse_args(first + ["--device", "cpu", "--mesh", "2,2"]))
+    # a data 2 x spatial 2 mesh: four processes, and make_mesh(2, spatial=2)
+    seen.clear()
+    spatial = list(flags)
+    spatial[spatial.index("--mesh") + 1] = "2,2"
+    spatial[spatial.index("--num_processes") + 1] = "4"
+    module.run(module.build_parser().parse_args(first + spatial))
+    assert seen["init"] == ("10.0.0.1:1234", 4, 1, "cpu", True)
+    assert seen["make_mesh"] == (2, 2, "cpu")
+    assert seen["loop_mesh"] is fake_mesh and seen["left"]
 
 
 @pytest.mark.parametrize("cli", ["train", "joint_train", "finetune"])
