@@ -7,10 +7,11 @@ infers and trains with image rows split over a spatial mesh (two and four
 ranks on the card),
 runs the HDR-Real path (record conversion, finetune, whole and tiled
 inference, evaluation, HDR-Synth validation) through its CLIs, carries the
-trained checkpoints through the reference TF2 format and back, and trains
-with rematerialised forwards, all at the full published widths, in f32 and
-in the JAX package's bf16 compute dtype, and checks each path against the
-CPU plain path or the plain step.
+trained checkpoints through the reference TF2 format and back, trains
+with rematerialised forwards, and drives the recipe tools (the quality
+anchor through its stage processes, serve_load, measure_feed), all at the
+full published widths, in f32 and in the JAX package's bf16 compute dtype,
+and checks each path against the CPU plain path or the plain step.
 
   python3 chip_smoke.py          (from the root of a checkout, one CUDA card)
 
@@ -148,6 +149,25 @@ Phases (each prints its own lines; any failure exits non-zero):
              time and the share of it its halo exchanges take (each timed
              alone, synchronised); two or four processes share one card, so
              no time here is a scaling figure
+  17 tools   the recipe tools (singlehdr_tpu_torch/tools): (a)
+             quality_anchor in bf16 at b16 @ 256^2 with 20 pretrain steps a
+             net, 20 joint steps, 8 HDR-Synth scenes and 6 pairs (2 finetune,
+             4 test), one finetune epoch, through its stage processes; every
+             stage exits 0, the three metrics finite; its ck_ref checkpoints
+             re-evaluated in this process on its test records within 1e-3 dB
+             and 1e-4 SSIM of its evaluate stage (less half the step its
+             printed line rounds to), K1 x1, K2 x6, K3 x1, K4 x2 (f32) a
+             batch; (b) serve_load in bf16 on 384x512, 512x512 and 256x384
+             with 8 clients, max batch 8, 50 requests: all 50 answered, no
+             error, every bucket warm at b1 and b8, batches formed, in the
+             timed window K1 x1 (f32), K2 x6, K3 x1, K4 x2 (bf16) a device
+             batch; p50/p90/p99 overall and per bucket; then at each
+             bucket's padded shape (448x576, 576x576, 320x448) at b8, K1
+             (f32) and K2-K4 (bf16) against their plain versions by phase
+             3's criteria; (c)
+             measure_feed at b16 @ 256^2 over 12 scenes (native codec if
+             built, cv2, prefetched x2; K1 launched by the capture), beside
+             phase 11's bf16 joint step in img/s
 The second-to-last line is the kernels' JSON record, one entry a (kernel,
 dtype): K2-K4's bf16 kernels as ``unet_stage2_bf16``, ``lin_feature_stem_bf16``
 and ``encoder_stage2_bf16`` (with each kernel's launches by path and per
@@ -344,6 +364,17 @@ MESH_F32_SLACK = 2.0
 SPATIAL_BANDS = 2
 SPATIAL_TIMED_FORWARDS = 3
 SPATIAL_KERNEL_BANDS = 4
+# phase 17, the recipe tools: the quality anchor at full width and reduced
+# depth (its last 4 pairs are the test set: 4 x 15 records of 256^2 at stride
+# 128), serve_load (50 requests over 8 clients: 50 % 8 = 2 clients send one
+# more), measure_feed at the joint configuration
+ANCHOR_ARGS = ("--dtype", "bfloat16", "--batch", str(TRAIN_BATCH), "--steps", "20", "--joint_steps", "20",
+               "--finetune_epochs", "1", "--n_train", "8", "--n_test", "6")
+ANCHOR_STAGES = ("pretrain_deq", "pretrain_lin", "pretrain_hal", "joint", "records_train", "records_test",
+                 "finetune", "evaluate")
+LOAD_SHAPES = "384x512,512x512,256x384"
+LOAD_CLIENTS, LOAD_BATCH, LOAD_REQUESTS = 8, 8, 50
+FEED_SCENES = 12
 HBM_BYTES_PER_S = 3.35e12
 SLEEP_CYCLES_PER_S = 2.0e9  # device_ms's lead: at least the SM clock (1.98 GHz at most)
 F32_TENSOR_FLOPS = 495e12 / 3   # 3xTF32
@@ -3269,6 +3300,141 @@ def mesh_timings(dev, card: str) -> tuple:
     return launches, n_steps
 
 
+def load_kernel_cases(dev, warm: dict, report: dict) -> None:
+    """Phase 17 (b)'s kernels at serve_load's own shapes: each bucket as the
+    pipeline runs it (the 32 px pad on every side) at the load's largest
+    batch, K1 in f32 and K2-K4 in bf16 from serve_load's seeded weights,
+    each against its plain version by phase 3's criteria.  Their max|err|
+    joins the kernels' lines in ``report``."""
+    from singlehdr_tpu_torch.inference import PAD
+    from singlehdr_tpu_torch.models import build_pipeline
+
+    plain = plain_versions()
+    pipe = build_pipeline(seed=0, device=dev)  # serve_load's; the bf16 cases round its weights
+    for bucket, sizes in warm.items():
+        bh, bw = map(int, bucket.split("x"))
+        hw, b = (bh + 2 * PAD, bw + 2 * PAD), max(sizes)
+        with torch.no_grad():
+            cases = [(torch.float32, c) for c in kernel_cases(pipe, dev, b=b, hw=hw, odd=False)
+                     if c[0] == "apply_rf"]
+            cases += [(torch.bfloat16, c) for c in kernel_cases(pipe, dev, torch.bfloat16, b=b, hw=hw,
+                                                                 odd=False)]
+        worst = {}
+        with torch.inference_mode():
+            for dtype, (name, label, args) in cases:
+                _, abs_err, rel_err, equal = compare_kernel(name, label, *plain[name], args, dtype)
+                key = name + ("_bf16" if dtype == torch.bfloat16 else "")
+                report[key]["max_abs_err"] = max(report[key]["max_abs_err"], abs_err)
+                w = worst.setdefault(key, [0.0, 1.0])
+                w[0], w[1] = max(w[0], rel_err), min(w[1], equal)
+        del cases
+        print(f"  (b) kernels vs plain at bucket {bucket} ({b} x {hw[0]}x{hw[1]}): "
+              + "; ".join(f"{k} rel {r:.3e}, {e:.2%} equal" for k, (r, e) in worst.items()), flush=True)
+    del pipe
+    torch.cuda.empty_cache()
+
+
+def recipe_tools(dev, card: str, work: str, joint_bf16_ms: float, report: dict) -> dict:
+    """Phase 17: the port's recipe tools on the card.  (a) the quality anchor
+    at full width and reduced depth through its stage processes, then its
+    final checkpoints re-evaluated in this process; (b) serve_load in bf16,
+    then each kernel at its buckets' shapes against its plain version; (c)
+    measure_feed at the joint configuration, beside phase 11's bf16 joint
+    step.  Returns the in-process launches of the three, {kernel: {dtype: n}}
+    (not (b)'s comparisons)."""
+    from singlehdr_tpu_torch.cli import evaluate, infer
+    from singlehdr_tpu_torch.data.real import HdrRealPipeline
+    from singlehdr_tpu_torch.data.records import RecordDataset
+    from singlehdr_tpu_torch.ops import cuda as kernels
+    from singlehdr_tpu_torch.tools import measure_feed, quality_anchor, serve_load
+
+    total: dict = {}
+
+    def counted(fn):
+        kernels.reset_launches()
+        result = fn()
+        torch.cuda.synchronize()
+        _add_counts(total, kernels.launch_counts_by_dtype())
+        return result, kernels.launch_counts()
+
+    t0 = time.perf_counter()
+    root = os.path.join(work, "anchor")
+    q = quality_anchor.main([*ANCHOR_ARGS, "--workdir", root, "--out", os.path.join(root, "quality.json")])
+    stages = "; ".join(f"{name} {s['wall_s']} s" + (f", loss {s['first_loss']} -> {s['last_loss']}"
+                                                    if s["first_loss"] else "")
+                       for name, s in q["stages"].items())
+    print(f"  (a) quality_anchor {' '.join(ANCHOR_ARGS)}: mu-PSNR {q['psnr_mu']} dB, mu-SSIM {q['ssim_mu']}, "
+          f"linear PSNR {q['psnr_linear']} dB in {q['wall_s']} s; stages: {stages}  [{q['device']}]",
+          flush=True)
+    metrics = {"psnr_mu_db": q["psnr_mu"], "ssim_mu": q["ssim_mu"], "psnr_linear_db": q["psnr_linear"]}
+    if sorted(q["stages"]) != sorted(ANCHOR_STAGES) or not all(
+            v is not None and np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"quality_anchor: stages {sorted(q['stages'])}, metrics {metrics}")
+    ref = os.path.join(root, "ck_ref")
+    records = os.path.join(root, "records")
+    pipe = infer.load_pipeline(infer.build_parser().parse_args(
+        [a for n in ("deq", "lin", "hal", "ref") for a in (f"--{n}_ckpt", ref)]), dev)
+    n_batches = len(RecordDataset(records, prefix="test")) // REAL_BATCH
+    again, counts = counted(lambda: evaluate.evaluate(
+        pipe, HdrRealPipeline(records, REAL_BATCH, training=False, prefix="test"), REAL_BATCH))
+    check_counts(f"anchor evaluate in this process, {n_batches} batches", counts,
+                 {**{k: n_batches * v for k, v in PER_BATCH.items()}, "apply_rf_bwd": 0})
+    # the stage's line rounds as the JAX CLI does (dB to 1e-3, SSIM to 1e-4):
+    # within the bound less half that step of it, the unrounded metrics are
+    # within the bound
+    delta = {k: abs(again[k] - metrics[k]) for k in metrics}
+    bounds = {"psnr_linear_db": EVAL_DB_TOL - 0.5e-3, "psnr_mu_db": EVAL_DB_TOL - 0.5e-3,
+              "ssim_mu": EVAL_SSIM_TOL - 0.5e-4}
+    print(f"  (a) its ck_ref re-evaluated here: {again}, |diff| from the stage's rounded line {delta} "
+          f"(bounds {bounds}: phase 12's {EVAL_DB_TOL} dB, SSIM {EVAL_SSIM_TOL} less the line's half "
+          f"step); {time.perf_counter() - t0:.1f} s", flush=True)
+    if not all(delta[k] <= bounds[k] for k in bounds):
+        raise AssertionError(f"the anchor's evaluate stage and this process disagree: {delta}")
+    del pipe
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    load, _ = counted(lambda: serve_load.main(
+        ["--dtype", "bfloat16", "--shapes", LOAD_SHAPES, "--clients", str(LOAD_CLIENTS),
+         "--batch", str(LOAD_BATCH), "--requests", str(LOAD_REQUESTS)]))
+    buckets = load["latency_per_bucket"]
+    pct = lambda d: f"p50 {d['p50_s'] * 1e3:.1f} / p90 {d['p90_s'] * 1e3:.1f} / p99 {d['p99_s'] * 1e3:.1f} ms"
+    print(f"  (b) serve_load bf16, {LOAD_SHAPES}, {LOAD_CLIENTS} clients, max batch {LOAD_BATCH}: "
+          f"{load['answered']} of {load['requests']} answered, {load['errors']} errors, "
+          f"{load['device_batches']} device batches (largest {load['max_batch']}), {load['req_s']} req/s; "
+          f"warm {load['warm']}; overall {pct(load['latency'])}; "
+          + "; ".join(f"{b} (n {d['n']}) {pct(d)}" for b, d in buckets.items())
+          + f"; {time.perf_counter() - t0:.1f} s  [{card}]", flush=True)
+    shapes = LOAD_SHAPES.split(",")
+    if not (load["requests"] == load["answered"] == LOAD_REQUESTS and load["errors"] == 0
+            and load["latency"]["n"] == LOAD_REQUESTS and len(buckets) == len(shapes)
+            and all(d["n"] > 0 for d in buckets.values()) and load["max_batch"] > 1
+            and all(v == [1, LOAD_BATCH] for v in load["warm"].values()) and len(load["warm"]) == len(shapes)):
+        raise AssertionError(f"serve_load: {load}")
+    # its timed window alone: K1 x1 (f32), K2 x6, K3 x1, K4 x2 (bf16) a batch
+    check_launches({"device_batches": load["device_batches"]}, load["launches"], torch.bfloat16)
+    if any(load["launches"]["apply_rf_bwd"].values()):
+        raise AssertionError(f"serve_load launched K1-bwd: {load['launches']}")
+    load_kernel_cases(dev, load["warm"], report)
+
+    t0 = time.perf_counter()
+    feed, counts = counted(lambda: measure_feed.main(
+        ["--batch", str(TRAIN_BATCH), "--size", str(TRAIN_HW), "--scenes", str(FEED_SCENES),
+         "--workdir", os.path.join(work, "feed")]))
+    step_img_s = TRAIN_BATCH / joint_bf16_ms * 1e3
+    rates = {k.removeprefix("feed_img_s_"): feed[k] for k in
+             ("feed_img_s_native", "feed_img_s_cv2", "feed_img_s_prefetched") if k in feed}
+    print(f"  (c) measure_feed b{TRAIN_BATCH} @ {TRAIN_HW}^2 over {FEED_SCENES} scenes, {feed['workers']} "
+          f"loader workers, {feed['host_cores']} host cores: JPEG round trip ms a batch "
+          f"{feed['jpeg_ms_per_batch']}; feed img/s {rates} (prefetched x{feed['producers']}); launches "
+          f"{counts}; phase 11's bf16 joint step {joint_bf16_ms:.2f} ms = {step_img_s:.2f} img/s; feed / "
+          f"device {feed['feed_img_s'] / step_img_s:.3f} (prefetched), {feed['feed_img_s_cv2'] / step_img_s:.3f} "
+          f"(cv2, one producer); {time.perf_counter() - t0:.1f} s  [{card}]", flush=True)
+    if not (counts["apply_rf"] > 0 and all(v > 0 for v in rates.values())):
+        raise AssertionError(f"measure_feed: launches {counts}, rates {rates}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3341,9 +3507,9 @@ def main() -> int:
 
 
 def run_training_and_real_paths(dev, card: str, report: dict, served: dict, work: str) -> int:
-    """Phases 9-16 and the last two lines, with phase 9's and phase 12's
+    """Phases 9-17 and the last two lines, with phase 9's and phase 12's
     files and checkpoints under ``work`` until phases 13-16 have read
-    them."""
+    them (phase 17 writes its own there)."""
     train_root = os.path.join(work, "train")
     os.makedirs(train_root)
     phase("9 joint training through the entry point")
@@ -3400,6 +3566,12 @@ def run_training_and_real_paths(dev, card: str, report: dict, served: dict, work
           f"{spatial_step} over {spatial_steps} rank-steps; phase 16: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+    phase("17 recipe tools: quality anchor, serve_load, measure_feed")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    tools_launches = recipe_tools(dev, card, work, step_ms[torch.bfloat16], report)
+    print(f"  tools path launches {tools_launches}; phase 17: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # launches: the serving paths' (phase 4, both dtypes), the training
     # paths' (phase 9, both dtypes), the HDR-Real paths' (phase 12), the
     # interop path's (phase 13), the remat path's (phase 14, its steps and
@@ -3407,7 +3579,10 @@ def run_training_and_real_paths(dev, card: str, report: dict, served: dict, work
     # --mesh 1 CLI runs and the mesh steps timed; not the meshless runs they
     # are compared with) and the spatial path's (phase 16: its ranks'
     # forwards and steps, not the one-process runs they are compared with nor
-    # the extended-band checks), of each (kernel, dtype); per serving batch of that
+    # the extended-band checks) and the tools' (phase 17, in this process: the
+    # anchor's re-evaluation, serve_load's warm-up and timed window and the
+    # feed's captures; not the anchor's stage processes), of each (kernel,
+    # dtype); per serving batch of that
     # dtype's pipeline, per training step, per finetune step (f32 and bf16
     # runs), evaluate batch, whole photo and tile (the tiled runs less their
     # invCRF views), per phase 14 step (its CLIs not included) and per
@@ -3430,14 +3605,15 @@ def run_training_and_real_paths(dev, card: str, report: dict, served: dict, work
         n_mesh = mesh_launches.get(base, {}).get(dt, 0)
         n_spatial_fwd = spatial_fwd.get(base, {}).get(dt, 0)
         n_spatial_step = spatial_step.get(base, {}).get(dt, 0)
+        n_tools = tools_launches.get(base, {}).get(dt, 0)
         entry = {
             "name": name, "dtype": dt, "route": "cuda", "source": SOURCES[base][0],
             "replaces": SOURCES[base][1],
             "launches": (n_serve + n_train + sum(real.values()) + n_interop + n_remat + n_mesh
-                         + n_spatial_fwd + n_spatial_step),
+                         + n_spatial_fwd + n_spatial_step + n_tools),
             "launches_by_path": {"serving": n_serve, "training": n_train, **real, "interop": n_interop,
                                  "remat": n_remat, "multi_device": n_mesh,
-                                 "spatial": n_spatial_fwd + n_spatial_step},
+                                 "spatial": n_spatial_fwd + n_spatial_step, "tools": n_tools},
             "launches_per_batch": {
                 **{f"serving_{d}": serve[d] / batches[d] for d in serve},
                 "training_step": n_train / train_steps,

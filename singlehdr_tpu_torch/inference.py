@@ -119,6 +119,10 @@ class HdrPredictor:
                 )
                 warm.add(n)
 
+    def warm_sizes(self) -> dict:
+        """{padded (h, w) bucket: the batch sizes already run there, sorted}."""
+        return {k: sorted(v) for k, v in self._warm.items()}
+
     def predict_batch(self, images) -> list:
         """Run same-bucket images as one device batch.
 

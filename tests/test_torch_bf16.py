@@ -609,6 +609,64 @@ def test_joint_step_bf16_matches_jax_bf16_step():
         assert float((got - value).abs().max()) <= STEP_STATS_TOL * float(value.abs().max()), key
 
 
+def test_finetune_step_bf16_is_as_near_f32_as_jax_bf16():
+    """The bf16 finetune step (all four nets, as the quality anchor runs it)
+    against JAX's finetune step in f32 and bf16 from one set of weights:
+    the loss within STEP_LOSS_TOL of JAX's bf16 loss, and each net's
+    gradients no farther from JAX's f32 ones than JAX's own bf16 gradients
+    are (STEP_NOISE_FACTOR) with a cosine no lower than theirs less
+    STEP_COS_SLACK; a zeroed or sign-flipped net fails.  Unlike the joint
+    step's, no net is bounded by its distance to JAX's bf16 gradients nor by
+    STEP_COS_MIN: hal's gradient reaches it through all four nets, and JAX's
+    own bf16 hal gradient has a cosine of 0.53 with the f32 one here."""
+    names = ("deq", "lin", "hal", "ref")
+    variables = _variables(names, seed=20)
+    batch = _step_batch(21)
+    batch["ldr"] = batch["ldr"] * 0.95  # highlights for hal, off the curve's last sample
+    batch["hdr"] = _smooth_images(np.random.RandomState(5), STEP_B, STEP_HW) * 2
+    keys = ("ldr", "hdr")
+    jax_runs = {}
+    for dt in (jnp.float32, jnp.bfloat16):
+        jstate, jloss, _ = jsteps.make_finetune_train_step(dt)(
+            _jax_state(variables, _recording_tx()), *[jnp.asarray(batch[k]) for k in keys])
+        jax_runs[dt] = (from_jax_variables({"params": jstate.opt_state}), float(jloss))
+    g_f32, _ = jax_runs[jnp.float32]
+    g_bf16, loss_bf16 = jax_runs[jnp.bfloat16]
+
+    nets = nn.ModuleDict({n: NETS[n][1](dtype=BF16) for n in names})
+    load_jax_variables(nets, variables)
+    state = TrainState(nets, make_optimizer(nets.parameters(), 1e-4))
+    loss, _ = steps.make_finetune_train_step(BF16)(state, *_port_args(batch, keys))
+    assert loss.dtype == torch.float32
+    assert abs(float(loss) - loss_bf16) <= STEP_LOSS_TOL * abs(loss_bf16)
+    grads = {k: p.grad for k, p in state.nets.named_parameters()}
+    assert set(grads) == set(g_f32)
+
+    def failures(net, own):
+        keys = list(own)
+        norm = lambda d: sum(_fro(d[k]) ** 2 for k in keys) ** 0.5
+        dist = lambda a, b: sum(_fro(a[k] - b[k]) ** 2 for k in keys) ** 0.5
+        cos = lambda a: sum(float((a[k].double() * g_f32[k].double()).sum()) for k in keys) / (
+            norm(a) * norm(g_f32)) if norm(a) > 0 else 0.0
+        out = []
+        if not dist(own, g_f32) <= STEP_NOISE_FACTOR * dist(g_bf16, g_f32) + 0.02 * norm(g_f32):
+            out.append(f"{net}: port - JAX f32 {dist(own, g_f32) / norm(g_f32):.3f}, JAX bf16 "
+                       f"{dist(g_bf16, g_f32) / norm(g_f32):.3f}")
+        if not cos(own) >= cos(g_bf16) - STEP_COS_SLACK:
+            out.append(f"{net}: cos {cos(own):.3f}, JAX bf16 {cos(g_bf16):.3f}")
+        return out
+
+    found = []
+    for net in names:
+        own = {k: g for k, g in grads.items() if k.startswith(net + ".")}
+        assert sum(_fro(g) for g in own.values()) > 0, net
+        found += failures(net, own)
+        for fault, bad in (("zeroed", 0.0), ("sign-flipped", -1.0)):
+            assert failures(net, {k: g * bad for k, g in own.items()}), \
+                f"a {fault} {net} gradient passes the bounds"
+    assert not found, found
+
+
 def test_batchnorm_running_variance_is_reduced_in_f32():
     """A bf16 BatchNorm's running statistics are the f32 batch statistics of
     its (bf16) input, as Flax's, not a bf16 reduction."""

@@ -294,29 +294,12 @@ def test_non_cpu_non_cuda_tensors_raise():
 
 def test_port_imports_no_jax():
     code = (
-        "import sys\n"
-        "import singlehdr_tpu_torch, singlehdr_tpu_torch.models, singlehdr_tpu_torch.ops\n"
-        "import singlehdr_tpu_torch.inference, singlehdr_tpu_torch.serve\n"
-        "import singlehdr_tpu_torch.convert, singlehdr_tpu_torch.cli.serve\n"
-        "import singlehdr_tpu_torch.cli.train, singlehdr_tpu_torch.cli.joint_train\n"
-        "import singlehdr_tpu_torch.models.vgg16, singlehdr_tpu_torch.ops.degradation\n"
-        "import singlehdr_tpu_torch.ops.losses, singlehdr_tpu_torch.ops.tonemap\n"
-        "import singlehdr_tpu_torch.train.state, singlehdr_tpu_torch.train.steps\n"
-        "import singlehdr_tpu_torch.train.checkpoint, singlehdr_tpu_torch.train.loop\n"
-        "import singlehdr_tpu_torch.train.metrics, singlehdr_tpu_torch.utils\n"
-        "import singlehdr_tpu_torch.calib, singlehdr_tpu_torch.calib.emor, singlehdr_tpu_torch.calib.crf\n"
-        "import singlehdr_tpu_torch.data.hdr_io, singlehdr_tpu_torch.data.datasets\n"
-        "import singlehdr_tpu_torch.data.synth, singlehdr_tpu_torch.data.jpeg\n"
-        "import singlehdr_tpu_torch.data.native_jpeg, singlehdr_tpu_torch.data.loader\n"
-        "import singlehdr_tpu_torch.data.records, singlehdr_tpu_torch.data.tfrecord\n"
-        "import singlehdr_tpu_torch.data.real, singlehdr_tpu_torch.tiled\n"
-        "import singlehdr_tpu_torch.cli.convert_records, singlehdr_tpu_torch.cli.finetune\n"
-        "import singlehdr_tpu_torch.cli.infer, singlehdr_tpu_torch.cli.evaluate\n"
-        "import singlehdr_tpu_torch.cli.validate_synth\n"
-        "import singlehdr_tpu_torch.train.tensorbundle, singlehdr_tpu_torch.train.object_graph\n"
-        "import singlehdr_tpu_torch.train.ref_inventory, singlehdr_tpu_torch.train.weight_import\n"
-        "import singlehdr_tpu_torch.cli.import_reference, singlehdr_tpu_torch.cli.export_weights\n"
-        "import singlehdr_tpu_torch.parallel, singlehdr_tpu_torch.parallel.mesh\n"
+        "import importlib, pkgutil, sys\n"
+        "import singlehdr_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(singlehdr_tpu_torch.__path__, 'singlehdr_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert {'singlehdr_tpu_torch.tools.quality_anchor', 'singlehdr_tpu_torch.precision'} <= set(names)\n"
         "singlehdr_tpu_torch.calib.get_crf_bank()\n"
         "singlehdr_tpu_torch.data.native_jpeg.available()\n"
         "import tempfile\n"
@@ -335,6 +318,15 @@ def test_port_imports_no_jax():
     named += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
     assert not [m for m in named if m.split(".")[0] in ("singlehdr_tpu", "jax", "flax", "optax",
                                                        "tensorflow")]
+    # nor does any string of the tools (a stage's module name is a string the
+    # imports above cannot see)
+    tools = os.path.join(ROOT, "singlehdr_tpu_torch", "tools")
+    for name in sorted(os.listdir(tools)):
+        if name.endswith(".py"):
+            with open(os.path.join(tools, name)) as f:
+                tree = ast.parse(f.read())
+            strings = [n.value for n in ast.walk(tree) if isinstance(n, ast.Constant) and isinstance(n.value, str)]
+            assert not [s for s in strings if "singlehdr_tpu." in s], name
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [ROOT, os.environ.get("PYTHONPATH")])))
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,

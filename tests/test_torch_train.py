@@ -325,3 +325,77 @@ def test_adam_state_bridge_carries_a_jax_run_into_the_port():
     for key, want in from_jax_variables({"params": jstate.params}).items():
         got = state.nets["deq"].get_parameter(key).detach()
         assert float((got - want).abs().max()) <= 2.01 * LR, key
+
+
+# N-step runs: each step's learning rate in the recipe (train.py,
+# joint_training.py, finetune_real_dataset.py); the witness is JAX on
+# inputs one ulp above the run's, whose trajectory departs from JAX's as
+# f32 rounding alone makes it (Adam moves a parameter whose gradient is
+# sum-order noise by ~lr a step, BatchNorm amplifies a batch of 2)
+N_STEPS = 20
+STEP_LR = {"deq": 1e-4, "lin": 1e-4, "hal": 1e-4, "joint": 1e-5, "finetune": 1e-5}
+# port-vs-JAX over witness-vs-JAX, read at 20 steps: loss 0.44-1.52, moved
+# parameters 0.88-1.53, BN statistics 0.55-1.48 (lin, hal, joint,
+# finetune; deq has no BatchNorm).  Adam's beta2 at 0.99 fails the
+# finetune case, a doubled BatchNorm momentum lin, joint and finetune
+N_STEP_SLACK = {"loss": 3.0, "params": 2.0, "stats": 3.0}
+
+
+def _n_step_run(name, variables, vgg, ulp: bool, port: bool):
+    """(losses, {param: tensor}, {BN statistic: tensor}) after N_STEPS steps
+    with Adam at the recipe's learning rate on seeded batches."""
+    names, jfactory, pfactory, keys = STEPS[name]
+    hw = HW if name == "finetune" else 2 * HW
+    if port:
+        state = _port_state(names, variables)
+        state.optimizer = make_optimizer(state.nets.parameters(), STEP_LR[name])
+        step = pfactory(vgg)
+    else:
+        state, step = _jax_state(variables, jax_make_optimizer(STEP_LR[name])), jfactory(vgg)
+    losses = []
+    for i in range(N_STEPS):
+        batch = _finetune_batch(100 + i) if name == "finetune" else _batch(100 + i, hw=hw)
+        if ulp:
+            batch = {k: np.nextafter(v, np.float32(np.inf)) if v.ndim == 4 and v.shape[-1] == 3 else v
+                     for k, v in batch.items()}
+        if port:
+            loss, _ = step(state, *_port_args(batch, keys))
+        else:
+            state, loss, _ = step(state, *[jnp.asarray(batch[k]) for k in keys])
+        losses.append(float(loss))
+    if port:
+        prefix = f"{names[0]}." if len(names) == 1 else ""
+        return (losses, {k[len(prefix):]: p.detach() for k, p in state.nets.named_parameters()},
+                {k[len(prefix):]: b for k, b in state.nets.named_buffers()})
+    return (losses, from_jax_variables({"params": state.params}),
+            from_jax_variables({"batch_stats": state.batch_stats}))
+
+
+@pytest.mark.parametrize("name", list(STEPS))
+def test_n_steps_track_jax_within_its_own_rounding(name, vggs):
+    """Twenty steps with the optimizer carried (Adam's moments, BatchNorm's
+    running statistics, the step count): the port's run stays as near the
+    JAX run as JAX's own run on inputs one ulp apart does.  A fault that
+    only many steps show (a moment or statistic carried wrongly, a second
+    statistics update, another learning rate) moves the port far outside
+    that noise; the one-step parity above cannot see it."""
+    names = STEPS[name][0]
+    variables = _variables(names, seed=20)
+    ref, wit, got = (_n_step_run(name, variables, vggs[0 if port else 1], ulp, port)
+                     for ulp, port in ((False, False), (True, False), (False, True)))
+    init = from_jax_variables({"params": variables["params"]})
+
+    def apart(run):
+        losses, params, stats = run
+        moved = sum(float((ref[1][k] - init[k]).pow(2).sum()) for k in init) ** 0.5
+        return {
+            "loss": max(abs(a - b) / abs(b) for a, b in zip(losses, ref[0])),
+            "params": sum(float((params[k] - ref[1][k]).pow(2).sum()) for k in init) ** 0.5 / moved,
+            "stats": max((float((stats[k] - v).abs().max() / v.abs().max()) for k, v in ref[2].items()),
+                         default=0.0),
+        }
+
+    port, witness = apart(got), apart(wit)
+    print(f"{name}: port {port}, witness {witness}")
+    for key, slack in N_STEP_SLACK.items():
+        assert port[key] <= slack * witness[key] + 1e-6, (key, port, witness)
